@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``alink_tpu_torch/csrc/*.cu`` have a plain C interface.  At
+first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library under ``build/alink_tpu_torch/`` (listed in ``.gitignore``), named by
+a hash of the sources and flags, and loaded with ``ctypes``.  Every pointer
+and the stream cross as ``c_void_p``, every int as ``c_int``.  Each C entry
+point returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
+non-zero status, because a refused launch never runs and a later
+synchronise would not report it.
+
+Nothing here runs at import: ``nvcc`` is looked up and the library built
+only when a kernel is first launched on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "alink_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # img, is_u8, xform, out, n, h, w, c, oh, ow, border_nearest,
+    # interp_nearest, stream
+    "alink_affine_warp": [_P, _I, _P, _P] + [_I] * 8 + [_P],
+    # rows, cols, n, m, d, dp, w1, b1, h1p, w2, b2, h2p, wo, bo, out, stream
+    "alink_pair_score": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                         _P, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libalink_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside the library in ``build.log``.
+    """
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+            lib.alink_error_string.argtypes = [_I]
+            lib.alink_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if status != 0:
+        msg = load().alink_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({status}: {msg})")

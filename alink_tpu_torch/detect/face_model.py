@@ -1,0 +1,103 @@
+"""FaceModel: detect -> align -> embed (counterpart of
+``alink_tpu/detect/face_model.py``).
+
+The embedder and the cascade towers carry their own weights and device;
+images may arrive as numpy arrays or tensors on any device and are moved
+to the embedder's device.  The genderage methods are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from alink_tpu_torch.detect.cascade import (CascadeConfig, Detections,
+                                            MTCNNParams, align_faces,
+                                            detect_faces)
+from alink_tpu_torch.ops.image import resize
+
+
+class FaceModel:
+    """Batched detect -> align -> embed pipeline.
+
+    Args:
+        embedder: an ArcFace module (``(N, 112, 112, 3) -> (N, D)``).
+        cascade_params: MTCNN towers, or None to skip detection (images are
+            then pre-cropped faces, resized to ``cfg.output_size``).
+        cfg: cascade budgets and thresholds.
+    """
+
+    def __init__(self, embedder: nn.Module,
+                 cascade_params: MTCNNParams | None = None,
+                 cfg: CascadeConfig = CascadeConfig()):
+        self.embedder = embedder.eval()
+        self.cascade_params = cascade_params
+        self.cfg = cfg
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.embedder.parameters()).device
+
+    def _to_device(self, images) -> torch.Tensor:
+        if isinstance(images, np.ndarray):
+            images = np.ascontiguousarray(images)  # views may have - strides
+        return torch.as_tensor(images, device=self.device)
+
+    def detect(self, images) -> Detections:
+        if self.cascade_params is None:
+            raise ValueError("no cascade params loaded (detection disabled)")
+        return detect_faces(self.cascade_params, self._to_device(images),
+                            self.cfg)
+
+    @torch.no_grad()
+    def _best_chips(self, images: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Best-scoring face per image, aligned -> (chips, found).
+
+        ``found`` is False where an image had no valid detection; its chip
+        is zeroed with a ``where`` (not a multiply: a padding landmark row
+        may warp to NaN, and 0 * NaN is NaN).
+        """
+        det = detect_faces(self.cascade_params, images, self.cfg)
+        neg = torch.finfo(det.scores.dtype).min
+        best = torch.argmax(torch.where(det.valid, det.scores, neg), dim=1)
+        found = torch.any(det.valid, dim=1)
+        lmk = det.landmarks[torch.arange(images.shape[0],
+                                         device=images.device), best]
+        chips = align_faces(images, lmk[:, None], self.cfg.output_size)[:, 0]
+        return torch.where(found[:, None, None, None], chips, 0.0), found
+
+    def get_input(self, images) -> torch.Tensor:
+        """Aligned face chips (zero where no face was found)."""
+        return self.get_input_valid(images)[0]
+
+    def get_input_valid(self, images) -> tuple[torch.Tensor, torch.Tensor]:
+        """(chips, found): ``get_input`` plus the per-image found mask."""
+        images = self._to_device(images)
+        if self.cascade_params is None:
+            chips = resize(images, self.cfg.output_size)
+            return chips, torch.ones(images.shape[0], dtype=torch.bool,
+                                     device=images.device)
+        return self._best_chips(images)
+
+    @torch.no_grad()
+    def get_feature(self, aligned) -> torch.Tensor:
+        """Embeddings of aligned chips."""
+        return self.embedder(self._to_device(aligned))
+
+    def process(self, images) -> torch.Tensor:
+        """End to end: raw images -> embeddings (zero chip where no face)."""
+        if self.cascade_params is None:
+            return self.get_feature(self.get_input(images))
+        return self.pipeline(images)
+
+    def pipeline(self, images) -> torch.Tensor:
+        """detect -> align -> embed; no-face images embed a zero chip."""
+        return self.pipeline_valid(images)[0]
+
+    @torch.no_grad()
+    def pipeline_valid(self, images) -> tuple[torch.Tensor, torch.Tensor]:
+        """(embeddings, found)."""
+        chips, found = self._best_chips(self._to_device(images))
+        return self.embedder(chips), found

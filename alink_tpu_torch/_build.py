@@ -34,6 +34,9 @@ _SIGNATURES = {
     # img, is_u8, xform, out, n, h, w, c, oh, ow, border_nearest,
     # interp_nearest, stream
     "alink_affine_warp": [_P, _I, _P, _P] + [_I] * 8 + [_P],
+    # x, n, h, w, cin, cm, cout, w1, s1, b1, w3, s2, b2, w2, s3, b3, wp, sp,
+    # bp, out, stream
+    "alink_bottleneck": [_P] + [_I] * 6 + [_P] * 14,
     # rows, cols, n, m, d, dp, w1, b1, h1p, w2, b2, h2p, wo, bo, out, stream
     "alink_pair_score": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P],

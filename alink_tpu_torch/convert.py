@@ -10,7 +10,7 @@ mapping is by name:
                           (kernel (in, out) -> weight (out, in))
     _FrozenBN_i -> bn.i   (gamma, beta, mean, var)
     _PReLU_i -> prelu.i   (alpha)
-    _IRUnit_i -> units.i
+    _IRUnit_i -> units.i, _Bottleneck_i -> blocks.i
     fc1_gamma, fc1_beta   (unchanged)
 
 ArcFace flattens NHWC before fc1 in both packages, so fc1 needs no
@@ -27,7 +27,8 @@ import torch
 from torch import nn
 
 _MODULE_NAMES = {"Conv": "conv", "Dense": "dense", "_FrozenBN": "bn",
-                 "_PReLU": "prelu", "_IRUnit": "units", "hidden": "hidden"}
+                 "_PReLU": "prelu", "_IRUnit": "units",
+                 "_Bottleneck": "blocks", "hidden": "hidden"}
 
 
 def _module_name(key: str) -> str:
@@ -66,8 +67,8 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def load_flax(module: nn.Module, params: Mapping) -> nn.Module:
-    """Load JAX-package parameters into ``module`` (ArcFace, P/R/O-Net or
-    SiameseHead); every tensor must match by name and shape
+    """Load JAX-package parameters into ``module`` (ArcFace, P/R/O-Net,
+    VGGFaceResNet50 or SiameseHead); every tensor must match by name and shape
     (``load_state_dict(strict=True)`` raises otherwise)."""
     module.load_state_dict(state_dict_from_flax(params), strict=True)
     return module

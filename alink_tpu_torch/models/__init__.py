@@ -1,10 +1,12 @@
-"""Models of the serving path (counterpart of ``alink_tpu.models``)."""
+"""Models (counterpart of ``alink_tpu.models``)."""
 
 from alink_tpu_torch.models import preprocess
 from alink_tpu_torch.models.arcface import (ArcFaceResNet34, ArcFaceResNet50,
                                             ArcFaceResNet100)
 from alink_tpu_torch.models.mtcnn import ONet, PNet, RNet
+from alink_tpu_torch.models.resnet import VGGFaceResNet50
 from alink_tpu_torch.models.siamese import SiameseHead
 
 __all__ = ["preprocess", "ArcFaceResNet34", "ArcFaceResNet50",
-           "ArcFaceResNet100", "ONet", "PNet", "RNet", "SiameseHead"]
+           "ArcFaceResNet100", "ONet", "PNet", "RNet", "SiameseHead",
+           "VGGFaceResNet50"]

@@ -25,24 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alink_tpu_torch.models.resnet import MXNET_BN_EPS, _FrozenBN
-
-
-def _lecun_normal_(t: torch.Tensor, fan_in: int,
-                   generator: torch.Generator | None) -> None:
-    """N(0, 1/fan_in) init (flax's default kernel scale), drawn on the CPU
-    from ``generator`` so a seed gives the same weights on every device."""
-    with torch.no_grad():
-        t.copy_(torch.randn(t.shape, generator=generator) * fan_in ** -0.5)
-
-
-def _make_conv(cin: int, cout: int, k: int, bias: bool, generator,
-               device) -> nn.Conv2d:
-    conv = nn.Conv2d(cin, cout, k, bias=bias, device=device)
-    _lecun_normal_(conv.weight, cin * k * k, generator)
-    if bias:
-        nn.init.zeros_(conv.bias)
-    return conv
+from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _FrozenBN,
+                                           _lecun_normal_, _make_conv)
 
 
 def _make_dense(cin: int, cout: int, generator, device) -> nn.Linear:

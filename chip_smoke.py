@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,20 @@ c. the slice at full width with seeded random weights: ArcFace r100 (bf16)
    matrix are then compared with the plain versions on the same tensors;
 d. ``FaceModel.process`` faces/s at batch 64 (warm, synchronised): the
    median, min and max of 7 windows, and the main thread's CPU time.
-   ``python -m alink_tpu_torch.tools.profile_serving`` breaks it down.
+   ``python -m alink_tpu_torch.tools.profile_serving`` breaks it down;
+e. K3 (fused stride-1 bottleneck) against its plain version at the five
+   stride-1 block shapes of VGGFace-ResNet50 at 224x224, batch 32: on
+   dyadic data (exact, limit 1e-6) and float data (relative 1e-2), with
+   CUDA-event times and TFLOP/s;
+f. the A-LINK training slice at full width: ``run_alink`` (synthetic DFW
+   tree, VGGFace-ResNet50 (3, 4, 6, 3) bf16 with seeded random weights,
+   ``SiameseHead`` (512, 64), the default noise bank without "adversarial")
+   with the counters zeroed just before and read just after (K3 must have
+   run); then ``test_accuracy`` of the student over the plain features,
+   with K1's counter zeroed just before and read just after.  Epochs,
+   steps and people are cut (each cut is printed).  Then the featurizer
+   with K3 against the same model with K3's plain version on 64 faces, and
+   featurize images/s at batch 128 (7 windows).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -31,6 +44,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -200,6 +214,267 @@ def phase_kernels(dev, g, rng):
                   "affine_warp": (k2_err, k2_ms, k2_plain)}
 
 
+# K3 against its plain version on the card, at the five stride-1 block
+# shapes of VGGFace-ResNet50 at 224x224: (H, Cin, Cm, Cout, projection,
+# blocks of this shape in one forward).
+K3_SHAPES = ((55, 64, 64, 256, True, 1), (55, 256, 64, 256, False, 2),
+             (28, 512, 128, 512, False, 3), (14, 1024, 256, 1024, False, 5),
+             (7, 2048, 512, 2048, False, 2))
+K3_BATCH = 32
+# Dyadic data (integer activations, weights in {-1, 0, 1}, BN scales
+# {1, 2} x 2^-k and shifts on the same grid) keeps every f32 product and
+# partial sum exact, so both sides round the same values to bf16: expect 0.
+K3_EXACT_LIMIT = 1e-6
+# Float data: f32 sums in other orders can round a y1/y2/out value to the
+# neighbouring bf16; held relative to the largest output.
+K3_FLOAT_LIMIT = 1e-2
+H100_BF16_TFLOPS = 989.0
+
+
+def k3_flops(n, hw, cin, cm, cout, proj) -> float:
+    return 2.0 * n * hw * hw * (cin * cm + 9 * cm * cm + cm * cout
+                                + (cin * cout if proj else 0))
+
+
+def k3_weights(cin, cm, cout, proj, g, dev, exact: bool):
+    """Random folded-BN bottleneck weights (dyadic when ``exact``) in the
+    kernel's layout on ``dev``."""
+    from alink_tpu_torch.ops.resblock import BottleneckWeights, kernel_weights
+
+    def lg(v: float) -> int:
+        return max(0, round(np.log2(v)) - 1)
+
+    def mat(shape, fan_in):
+        if exact:
+            return torch.randint(-1, 2, shape, generator=g).float()
+        return torch.randn(shape, generator=g) * fan_in ** -0.5
+
+    def bn(c, k):
+        if exact:
+            s = torch.randint(1, 3, (c,), generator=g) * 2.0 ** -k
+            return s, torch.randint(-3, 4, (c,), generator=g) * 2.0 ** -k
+        return (torch.rand(c, generator=g) + 0.5,
+                torch.randn(c, generator=g) * 0.1)
+
+    # Scale exponents bring each accumulator (std ~ sqrt(K * E[a^2] E[w^2]))
+    # back to a std of ~2, on a grid of 2^-(k1 + k2 + k3) at the output.
+    k1, k2, k3 = lg((cin * 4 / 3) ** .5), lg((12 * cm) ** .5), lg(
+        (cm * 4 / 3) ** .5)
+    s1, b1 = bn(cm, k1)
+    s2, b2 = bn(cm, k1 + k2)
+    s3, b3 = bn(cout, k1 + k2 + k3)
+    s2 = s2 * (2.0 ** k1 if exact else 1.0)
+    s3 = s3 * (2.0 ** (k1 + k2) if exact else 1.0)
+    wts = [mat((cin, cm), cin), s1, b1, mat((3, 3, cm, cm), 9 * cm), s2, b2,
+           mat((cm, cout), cm), s3, b3]
+    if proj:
+        sp, bp = bn(cout, k1 + k2 + k3)
+        sp = sp * (2.0 ** (k2 + k3) if exact else 1.0)   # x . Wp ~ acc1
+        wts += [mat((cin, cout), cin), sp, bp]
+    return kernel_weights(BottleneckWeights(*wts), dev)
+
+
+def phase_k3(dev, g):
+    """(e): K3 against its plain version at the featurizer's five stride-1
+    block shapes, batch 32; returns (max err, kernel ms, plain ms) summed
+    over the 13 blocks of one forward."""
+    from alink_tpu_torch.ops import resblock
+
+    err_all = 0.0
+    ms_fwd = plain_fwd = 0.0
+    for hw, cin, cm, cout, proj, count in K3_SHAPES:
+        name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
+        for exact in (True, False):
+            wts = k3_weights(cin, cm, cout, proj, g, dev, exact)
+            if exact:
+                x = torch.randint(-2, 3, (K3_BATCH, hw, hw, cin), generator=g)
+            else:
+                x = torch.relu(torch.randn((K3_BATCH, hw, hw, cin),
+                                           generator=g))
+            x = x.to(dev, torch.bfloat16)
+            got = resblock.bottleneck_s1_kernel(x, wts)
+            want = resblock.bottleneck_s1_reference(x, wts)
+            torch.cuda.synchronize()
+            err = maxdiff(got, want)
+            scale = float(want.float().abs().max())
+            nonzero = float((want != 0).float().mean())
+            check(got.shape == want.shape and got.dtype == torch.bfloat16
+                  and bool(torch.isfinite(got.float()).all()),
+                  f"K3 {name}: bad output")
+            if exact:
+                print(f"K3 bottleneck {name} dyadic: max|diff| {err:.3e} "
+                      f"(limit {K3_EXACT_LIMIT}); max|out| {scale:.1f}, "
+                      f"{100 * nonzero:.0f} % non-zero", flush=True)
+                check(err <= K3_EXACT_LIMIT,
+                      f"K3 {name} dyadic: max|diff| {err} > {K3_EXACT_LIMIT}")
+            else:
+                rel = err / max(scale, 1e-30)
+                print(f"K3 bottleneck {name} float: max|diff| {err:.3e}, "
+                      f"relative {rel:.3e} (limit {K3_FLOAT_LIMIT})",
+                      flush=True)
+                check(rel <= K3_FLOAT_LIMIT,
+                      f"K3 {name} float: relative {rel} > {K3_FLOAT_LIMIT}")
+            check(nonzero > 0.2, f"K3 {name}: output mostly zero")
+            err_all = max(err_all, err)
+        ms = cuda_ms(lambda: resblock.bottleneck_s1_kernel(x, wts), iters=10)
+        plain = cuda_ms(lambda: resblock.bottleneck_s1_reference(x, wts),
+                        iters=5)
+        tf = k3_flops(K3_BATCH, hw, cin, cm, cout, proj) / (ms * 1e-3) / 1e12
+        print(f"K3 {name} batch {K3_BATCH}: kernel {ms:.4f} ms "
+              f"({tf:.1f} TFLOP/s, {100 * tf / H100_BF16_TFLOPS:.1f} % of "
+              f"{H100_BF16_TFLOPS:.0f} dense bf16), plain {plain:.4f} ms",
+              flush=True)
+        ms_fwd += count * ms
+        plain_fwd += count * plain
+    print(f"K3 13 blocks of one forward, batch {K3_BATCH}: kernel "
+          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms", flush=True)
+    return err_all, ms_fwd, plain_fwd
+
+
+# Phase (f): the A-LINK training slice at full width.  Cuts, each printed:
+F_IMAGE = 224
+F_PEOPLE = 12          # synthetic DFW people (DFW trains on ~1,000)
+F_DIG_EPOCHS = 2       # ALinkConfig default 40
+F_UNDIG_EPOCHS = 2     # ALinkConfig default 60
+F_TRAIN_STEPS = 512    # samples per pretraining epoch, default 320,000
+F_ALINK_BS = 4         # people per slab, default 16: 3 slabs of 160 pairs
+F_BATCH_SEND = 4       # queue size that triggers a finetune, default 64
+F_DEVICE_BATCH = 64    # pairs per chunk, default 1,024
+F_NOISE = ("gaussian", "saltpepper", "poisson", "speckle")  # no adversarial
+F_FEAT_BATCH = 128
+# Featurizer with K3 against the same model with K3's plain version: both
+# round at the same points, f32 sums in other orders.
+F_FEAT_LIMIT = 1e-2
+
+
+def phase_alink(dev, smi: str):
+    """(f): ``run_alink`` at full width, then ``test_accuracy`` over the
+    plain features; returns the kernels' launch counts in ``run_alink``."""
+    import tempfile
+
+    from alink_tpu_torch import train as T
+    from alink_tpu_torch.data import (load_person_stacks, make_synthetic_dfw,
+                                      scan_dfw)
+    from alink_tpu_torch.drivers import common
+    from alink_tpu_torch.drivers.alink import parse_config, run_alink
+    from alink_tpu_torch.models import SiameseHead, preprocess
+    from alink_tpu_torch.ops import pairwise, resblock
+    from alink_tpu_torch.tools.profile_serving import summary, windows
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="alink_", dir=work))
+    cfg = parse_config(
+        ["--noise", ",".join(F_NOISE)], synthetic_people=F_PEOPLE,
+        image_res=(F_IMAGE, F_IMAGE), dig_epochs=F_DIG_EPOCHS,
+        undig_epochs=F_UNDIG_EPOCHS, train_steps=F_TRAIN_STEPS,
+        alink_bs=F_ALINK_BS, batch_send=F_BATCH_SEND,
+        device_batch=F_DEVICE_BATCH, seed=SEED,
+        out_model=str(out / "postALINK"),
+        ensemble_basepath=str(out / "ensemble"),
+        disguised_basemodel=str(out / "disguisedModel"))
+    for line in (f"synthetic_people {F_PEOPLE} (DFW: ~1,000 people)",
+                 f"dig_epochs 40 -> {F_DIG_EPOCHS}",
+                 f"undig_epochs 60 -> {F_UNDIG_EPOCHS}",
+                 f"train_steps 320000 -> {F_TRAIN_STEPS}",
+                 f"alink_bs 16 -> {F_ALINK_BS}",
+                 f"batch_send 64 -> {F_BATCH_SEND}",
+                 f"device_batch 1024 -> {F_DEVICE_BATCH}",
+                 "noise: the default bank without 'adversarial'"):
+        print(f"alink cut: {line}", flush=True)
+    t0 = time.perf_counter()
+    featurize, model = common.make_resnet50_featurizer(
+        torch.Generator().manual_seed(SEED), device=dev)
+    print(f"alink: VGGFace-ResNet50 (3, 4, 6, 3) bf16 built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    k3, k1 = resblock.bottleneck_s1_kernel, pairwise.score_matrix_kernel
+    k3.launches = k1.launches = 0
+    t0 = time.perf_counter()
+    state = run_alink(cfg, featurize=featurize, device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = {"bottleneck": k3.launches, "pair_score": k1.launches}
+    print(f"alink: run_alink {t_run:.1f} s; launches {counts}", flush=True)
+    check(counts["bottleneck"] > 0,
+          "kernel bottleneck was not launched by run_alink")
+
+    # test_accuracy of M2 over the plain features of the same tree (the
+    # same seed writes the same files): K1 on the training side.
+    tree = make_synthetic_dfw(str(out / "tree"), num_people=F_PEOPLE,
+                              image_size=F_IMAGE,
+                              train_folder=cfg.train_images_dir, seed=SEED)
+    people = scan_dfw(tree, cfg.train_images_dir)
+    res = (F_IMAGE, F_IMAGE)
+    plain_raw = load_person_stacks([p.plain for p in people], res)
+    dig_raw = load_person_stacks([p.disguised for p in people], res)
+    pf = common.featurize_stacks(plain_raw, featurize, dev)
+    mask = pf.mask()
+    feats = pf.images[mask]
+    labels = np.repeat(np.arange(pf.num_people), pf.counts)
+    k1.launches = 0
+    acc = T.test_accuracy(state.m2_state, feats, labels)
+    torch.cuda.synchronize()
+    print(f"alink: test_accuracy of M2 on {len(feats)} plain faces "
+          f"{acc:.4f}; pair_score launches {k1.launches}", flush=True)
+    check(k1.launches > 0, "kernel pair_score was not launched by "
+          "test_accuracy")
+
+    logs = state.logs
+    per_slab = [10 * b * b for b in
+                np.diff(np.r_[0:F_PEOPLE:F_ALINK_BS, F_PEOPLE])]
+    check(len(logs) >= 2, f"only {len(logs)} loop iterations")
+    check([lg.pairs for lg in logs] == per_slab[:len(logs)],
+          f"pairs per slab {[lg.pairs for lg in logs]} != {per_slab}")
+    check(state.un_size == sum(lg.pairs for lg in logs), "un_size")
+    check(any(lg.finetuned for lg in logs), "no finetune ran")
+    check(np.isfinite(feats).all() and feats.shape[1] == 2048,
+          "non-finite or mis-shaped features")
+    head = SiameseHead(2048, device=dev)
+    head.load_state_dict(T.restore(cfg.out_model))
+    p = head(torch.as_tensor(feats[:16], device=dev),
+             torch.as_tensor(feats[16:32], device=dev))
+    check(bool(torch.isfinite(p).all()) and p.shape == (16, 2),
+          "saved post-A-LINK head gives bad probabilities")
+    for lg in logs:
+        print(f"alink: {lg}", flush=True)
+    tm = state.timings.as_dict()
+    n_it = len(logs)
+    print(f"alink: one loop iteration {sum(tm.values()) / n_it:.3f} s "
+          f"(mean of {n_it}); per-phase s/iteration "
+          + ", ".join(f"{k} {v / n_it:.3f}" for k, v in
+                      sorted(tm.items(), key=lambda kv: -kv[1])), flush=True)
+
+    # The featurizer with K3 against the same model with K3's plain version,
+    # on 64 faces of the tree.
+    faces = np.concatenate([plain_raw.images[mask],
+                            dig_raw.images[dig_raw.mask()]])
+    xp = preprocess.vggface(torch.as_tensor(faces[:64], device=dev), version=2)
+    got = model(xp)
+    want = model(xp, chain=resblock.bottleneck_chain_reference)
+    torch.cuda.synchronize()
+    rel = maxdiff(got, want) / float(want.abs().max())
+    print(f"alink: featurizer K3 vs plain chain on {len(xp)} faces: "
+          f"relative max|diff| {rel:.3e} (limit {F_FEAT_LIMIT})", flush=True)
+    check(got.shape == (len(xp), 2048) and bool(torch.isfinite(got).all()),
+          "featurizer: bad output")
+    check(rel < F_FEAT_LIMIT, f"featurizer: relative {rel} > {F_FEAT_LIMIT}")
+
+    xb = torch.as_tensor(rng_images(F_FEAT_BATCH), device=dev)
+    s = summary(windows(lambda: featurize(xb), dev, n_windows=7, iters=5))
+    print(f"featurize: {F_FEAT_BATCH * 1e3 / s['median_ms']:.1f} images/s at "
+          f"batch {F_FEAT_BATCH} (median of 7 windows {s['median_ms']:.2f} "
+          f"ms/batch, min {s['min_ms']:.2f}, max {s['max_ms']:.2f}; "
+          f"main-thread CPU {s['cpu_median_ms']:.2f} ms/batch), "
+          f"VGGFace-ResNet50 bf16 {F_IMAGE}x{F_IMAGE} on {smi}", flush=True)
+    return counts
+
+
+def rng_images(n: int) -> np.ndarray:
+    return np.random.default_rng(SEED).uniform(
+        0, 255, (n, F_IMAGE, F_IMAGE, 3)).astype(np.float32)
+
+
 def phase_slice(dev, g, rng, head):
     """(c): the serving path at full width; returns (fm, launch counts)."""
     from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
@@ -323,7 +598,8 @@ def main() -> int:
     log = (_build.BUILD_DIR / "build.log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem",
+                                       "entry function")):
                 print("ptxas:", line.strip(), flush=True)
 
     g = torch.Generator().manual_seed(SEED)
@@ -334,11 +610,21 @@ def main() -> int:
     phase_speed(fm, torch.as_tensor(
         rng.uniform(0, 255, (BATCH, IMG, IMG, 3)), dtype=torch.float32,
         device=dev), smi)
+    del fm
+    torch.cuda.empty_cache()
+
+    numbers["bottleneck"] = phase_k3(dev, g)
+    alink_counts = phase_alink(dev, smi)
+    # Each kernel's count is the one from the main path that runs it:
+    # serving for K1 and K2, training for K3.
+    counts["bottleneck"] = alink_counts["bottleneck"]
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),
                "affine_warp": ("alink_tpu_torch/csrc/affine_warp.cu",
-                               "alink_tpu/ops/image.py:230")}
+                               "alink_tpu/ops/image.py:230"),
+               "bottleneck": ("alink_tpu_torch/csrc/bottleneck.cu",
+                              "alink_tpu/ops/resblock.py:72")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],

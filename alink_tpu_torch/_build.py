@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``alink_tpu_torch/csrc/*.cu`` have a plain C interface.  At
-first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/alink_tpu_torch/`` (listed in ``.gitignore``), named by
-a hash of the sources and flags, and loaded with ``ctypes``.  Every pointer
+first use each is compiled by its own ``nvcc`` for ``sm_90a``, all at once,
+and the objects are linked into one shared library under
+``build/alink_tpu_torch/`` (listed in ``.gitignore``), named by a hash of the
+sources and flags, and loaded with ``ctypes``.  Every pointer
 and the stream cross as ``c_void_p``, every int as ``c_int``.  Each C entry
 point returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
 non-zero status, because a refused launch never runs and a later
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "alink_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,9 @@ _SIGNATURES = {
     # rows, cols, n, m, d, dp, w1, b1, h1p, w2, b2, h2p, wo, bo, out, stream
     "alink_pair_score": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P],
+    # x, x_rows, wt, scale, bias, alpha, qscale, out, out_rows, cin, cout,
+    # lead, wp, r, h, w, mode, stream
+    "alink_qconv": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
@@ -68,7 +72,8 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
+    """Compile the kernels (one ``nvcc`` per source, in parallel) and link
+    them, unless a library for these sources exists.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory and
     spills per kernel) is kept beside the library in ``build.log``.
@@ -77,14 +82,30 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True,
+                             check=False)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(log))
     os.replace(tmp, path)
     return path
 

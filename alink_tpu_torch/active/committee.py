@@ -3,25 +3,24 @@
 
 The members' parameters live in one dict of (E, ...) tensors; prediction
 is one ``vmap(functional_call)`` over the member axis.  ``attack_model``
-fans the noise bank over a raw pair batch.  The model-backed channels
-("adversarial", the one-pixel DE attack, and "fgsm") are not ported yet:
-asking for one raises ``NotImplementedError``.
+fans the noise bank over a raw pair batch; its model channels, the
+one-pixel DE attack ("adversarial") and "fgsm", attack the live student
+through an end-to-end predict function.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
 from torch.func import functional_call, vmap
 
+from alink_tpu_torch.ops import attack as attack_ops
 from alink_tpu_torch.ops import noise as noise_ops
 from alink_tpu_torch.ops.image import resize
 
 MODEL_CHANNELS = ("adversarial", "fgsm")
-NOT_PORTED = ("the {} noise channel needs ops/de.py and ops/attack.py, which "
-              "are not ported yet (ROADMAP.md, queue item 1: the A2 channel)")
 
 
 def stack_params(param_dicts: Sequence[dict]) -> dict:
@@ -33,14 +32,6 @@ def stack_params(param_dicts: Sequence[dict]) -> dict:
 def unstack_params(stacked: dict, index: int) -> dict:
     """Member ``index`` of a stacked dict."""
     return {k: v[index].detach() for k, v in stacked.items()}
-
-
-def check_noise_names(names: Sequence[str]) -> None:
-    """Raise for a channel the port cannot run yet."""
-    # Divergence: the DE one-pixel channel (and FGSM) is not available yet.
-    for name in names:
-        if name in MODEL_CHANNELS:
-            raise NotImplementedError(NOT_PORTED.format(repr(name)))
 
 
 class Committee:
@@ -80,13 +71,48 @@ class Committee:
 
     @torch.no_grad()
     def attack_model(self, g: torch.Generator, left: torch.Tensor,
-                     right: torch.Tensor, target_res: tuple[int, int]
+                     right: torch.Tensor, target_res: tuple[int, int],
+                     m1_labels: torch.Tensor | None = None,
+                     adversarial_predict: Callable | None = None,
+                     adversarial_params=None,
+                     adversarial_kwargs: dict | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """The noise bank over a raw pair batch: (K, N, h, w, C) left and
         right stacks resized to ``target_res`` = (h, w), channels in
-        ``noise_names`` order; a same-resolution target skips the resize."""
-        check_noise_names(self.noise_names)
-        ls, rs = noise_ops.apply_noise_bank(self.noise_names, g, left, right)
+        ``noise_names`` order; a same-resolution target skips the resize.
+
+        The model channels need the student's end-to-end ``(params, left,
+        right) -> (N, 2)`` probabilities as ``adversarial_predict``, its
+        live state as ``adversarial_params`` and the committee's one-hot
+        ``m1_labels``.  ``adversarial_kwargs`` go to the one-pixel attack;
+        ``proxy_hw`` among them selects its low-resolution surrogate.  The
+        plain channels draw from ``g`` first, then the DE attack."""
+        plain = tuple(n for n in self.noise_names if n not in MODEL_CHANNELS)
+        by_name = {}
+        if plain:
+            ls, rs = noise_ops.apply_noise_bank(plain, g, left, right)
+            by_name = {n: (ls[i], rs[i]) for i, n in enumerate(plain)}
+        outs = []
+        for name in self.noise_names:
+            if name not in MODEL_CHANNELS:
+                outs.append(by_name[name])
+                continue
+            if adversarial_predict is None or m1_labels is None:
+                raise ValueError(f"{name} channel requires adversarial_predict "
+                                 "and m1_labels")
+            if name == "adversarial":
+                akw = dict(adversarial_kwargs or {})
+                attack = (attack_ops.one_pixel_attack_pairs_proxy
+                          if "proxy_hw" in akw
+                          else attack_ops.one_pixel_attack_pairs)
+                outs.append(attack(adversarial_predict, adversarial_params,
+                                   left, right, m1_labels, g, **akw))
+            else:
+                outs.append(attack_ops.fgsm_pairs(
+                    adversarial_predict, adversarial_params, left, right,
+                    m1_labels))
+        ls = torch.stack([o[0].float() for o in outs])
+        rs = torch.stack([o[1].float() for o in outs])
         if tuple(target_res) == tuple(ls.shape[2:4]):
             return ls, rs
         k, n = ls.shape[:2]

@@ -4,8 +4,10 @@ reference's ALINK.py:145-259).  Per slab of ``alink_bs`` unlabeled persons:
 1. build the all-pairs slab (plain x disguised + disguised x disguised);
    its ground-truth labels act as the pseudo-oracle;
 2. in chunks of at most ``device_batch`` pairs: gather the pairs from the
-   device-resident pool, featurize, committee (M1) probabilities, the noise
-   bank on the raw pixels, student (M2) probabilities per channel;
+   device-resident pool, featurize, committee (M1) probabilities and
+   one-hot labels, the noise bank on the raw pixels (its model channels
+   attack the live student toward M1's labels; grad is enabled only
+   inside FGSM), student (M2) probabilities per channel;
 3. disparity selection, all-noise intersection and the oracle gate
    (``active.selection``, with the host-exact take count ``int(n * ratio)``);
 4. queue equal per-noise shares of the queried pairs;
@@ -17,7 +19,7 @@ reference's ALINK.py:145-259).  Per slab of ``alink_bs`` unlabeled persons:
 PyTorch runs eagerly, so the JAX package's shape bucketing (pool rows,
 chunk widths, gathers), which exists to bound recompiles, is not ported:
 chunks take their real width.  Not ported yet, and raising
-``NotImplementedError`` when asked for (ROADMAP.md queue item 2): loop
+``NotImplementedError`` when asked for (ROADMAP.md queue item 1): loop
 ``save``/``restore``/resume, ``augment=True``, ``debug_nans``,
 ``device_batch="auto"`` and the multi-host heartbeat; the raw-pixel student
 of the Multi-PIE driver (``student_featurize=None``) waits with that driver.
@@ -40,7 +42,7 @@ from alink_tpu_torch.ops.pairwise import pair_scores
 from alink_tpu_torch.train.trainer import TrainState, fit
 from alink_tpu_torch.utils.profiling import Timings
 
-NOT_PORTED = ("{} is not ported yet (ROADMAP.md, queue item 2: loop resume, "
+NOT_PORTED = ("{} is not ported yet (ROADMAP.md, queue item 1: loop resume, "
               "augment and the debug and multi-host knobs)")
 
 
@@ -90,7 +92,7 @@ class ALinkLoop:
     """Host orchestrator of the A-LINK loop.
 
     Args:
-        config: an ``alink_tpu.config.ALinkConfig``.
+        config: an ``alink_tpu_torch.config.ALinkConfig``.
         featurize: ``(N, H, W, C) f32 tensor -> (N, D)`` on ``device``;
             M1 and the M2 student share it (the DFW drivers).
         committee: the M1 ensemble over feature pairs.
@@ -101,6 +103,11 @@ class ALinkLoop:
         pool_uint8: keep the slab's image pool uint8 on the device.
         generator: noise draws, on ``device`` (seeded from ``config.seed``
             when omitted); finetune shuffles use ``host_generator``.
+        adversarial_predict: the student end to end, ``(m2 module, left,
+            right) -> (N, 2)`` probabilities on raw pixels, for the model
+            channels of the noise bank (``drivers.alink.
+            make_adversarial_predict``); ``adversarial_kwargs`` go to the
+            one-pixel attack.
         device: where the pool and all tensor work live (default: the
             student's device).
     """
@@ -110,6 +117,8 @@ class ALinkLoop:
                  device_batch: int | None = None, pool_uint8: bool = False,
                  generator: torch.Generator | None = None,
                  host_generator: torch.Generator | None = None,
+                 adversarial_predict: Callable | None = None,
+                 adversarial_kwargs: dict | None = None,
                  device=None):
         db = device_batch if device_batch is not None else getattr(
             config, "device_batch", 1024)
@@ -124,6 +133,8 @@ class ALinkLoop:
         self.device_batch = int(db)
         self.featurize = featurize
         self.committee = committee
+        self.adversarial_predict = adversarial_predict
+        self.adversarial_kwargs = adversarial_kwargs
         # The noisy pairs are resized to the student's (h, w); the config
         # holds cv2's (w, h).
         self.student_res = (config.image_res[1], config.image_res[0])
@@ -161,8 +172,15 @@ class ALinkLoop:
         right_raw = pool[right_idx].float()
         m1 = self.committee.predict(self._features(left_raw),
                                     self._features(right_raw))
+        m1_labels = torch.nn.functional.one_hot(
+            torch.argmax(m1, dim=-1), 2).float()
+        # The attacks target the live student (noise.py:153-168).
         noisy_l, noisy_r = self.committee.attack_model(
-            self.generator, left_raw, right_raw, self.student_res)
+            self.generator, left_raw, right_raw, self.student_res,
+            m1_labels=m1_labels,
+            adversarial_predict=self.adversarial_predict,
+            adversarial_params=self.state.m2_state.module,
+            adversarial_kwargs=self.adversarial_kwargs)
         k, nc = noisy_l.shape[:2]
         sli = self._features(noisy_l.reshape((-1,) + noisy_l.shape[2:]))
         sri = self._features(noisy_r.reshape((-1,) + noisy_r.shape[2:]))

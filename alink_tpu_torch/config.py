@@ -1,0 +1,96 @@
+"""The A-LINK loop configuration (counterpart of ``alink_tpu/config.py``'s
+``ALinkConfig``): the same fields, defaults and validation, kept here so
+that the port imports nothing of the JAX package.
+
+Knob names are the reference's flag names (``code/ALINK.py:37-62``).  The
+TPU-only knobs (``mesh_shape``, ``featurize_scan_units``, ``device_batch=
+"auto"``'s tunnel probe) are kept as fields so that configurations cross
+between the packages; the port ignores or refuses them where it says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ALinkConfig:
+    """A-LINK / A2-LINK loop configuration; defaults are the reference
+    driver's flag defaults."""
+
+    # Paths (ALINK.py:37-42)
+    data_dir_prefix: str = "DFW_Data/"
+    train_images_dir: str = "Training_data"
+    test_images_dir: str = "Testing_data"
+    out_model: str = "models/postALINK"
+    ensemble_basepath: str = "models/ensemble"
+    disguised_basemodel: str = "models/disguisedModel"
+
+    # Noise bank, comma-separated in the reference (ALINK.py:43).
+    noise: Sequence[str] = (
+        "gaussian",
+        "saltpepper",
+        "poisson",
+        "speckle",
+        "adversarial",
+    )
+
+    # Training schedule (ALINK.py:45-52)
+    ft_epochs: int = 3
+    batch_size: int = 16
+    dig_epochs: int = 40
+    undig_epochs: int = 60
+    batch_send: int = 64
+    mixture_ratio: int = 2
+    alink_bs: int = 16
+    num_ensemble_models: int = 1
+
+    # Selection knobs (ALINK.py:54-57)
+    active_ratio: float = 1.0
+    split_ratio: float = 0.5
+    disparity_ratio: float = 0.25
+    eps: float = 0.05
+
+    # Behaviour toggles (ALINK.py:59-62)
+    augment: bool = False
+    refine_models: bool = False
+    train_disguised_model: bool = False
+    blind_strategy: bool = False
+
+    # Geometry (module constants at ALINK.py:28-32); image_res is cv2 (w, h).
+    image_res: tuple[int, int] = (224, 224)
+    feature_res: int = 2048
+
+    # Additions without a reference counterpart.
+    seed: int = 42  # the reference seeds TF with 42 (ALINK.py:19)
+    mesh_shape: tuple[int, ...] = (-1,)
+    dtype: str = "bfloat16"
+    # > 0: generate a synthetic DFW-protocol tree with this many people.
+    synthetic_people: int = 0
+    # Samples per pretraining epoch (the reference hard-codes 320000).
+    train_steps: int = 320000
+    loop_checkpoint: str = ""
+    checkpoint_every: int = 1
+    max_restarts: int = 0
+    # Pairs per selection chunk.
+    device_batch: int | str = 1024
+    ingest_dct_scale: bool = False
+    featurize_scan_units: bool = False
+    debug_nans: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.device_batch, str):
+            if self.device_batch != "auto":
+                raise ValueError(
+                    "device_batch must be a positive int or 'auto'")
+        elif self.device_batch <= 0:
+            raise ValueError("device_batch must be positive")
+        if not (0.0 <= self.split_ratio <= 1.0):  # ALINK.py:74
+            raise ValueError("split_ratio must be in [0, 1]")
+        if not (0.0 <= self.disparity_ratio <= 1.0):  # ALINK.py:75
+            raise ValueError("disparity_ratio must be in [0, 1]")
+        if not (0.0 <= self.eps < 0.5):  # ALINK.py:76
+            raise ValueError("eps must be in [0, 0.5)")
+        if self.max_restarts > 0 and not self.loop_checkpoint:
+            raise ValueError("max_restarts requires loop_checkpoint")

@@ -7,13 +7,13 @@
 3. train-or-load the student M2 and the M1 committee;
 4. run the A-LINK loop and save the post-A-LINK head.
 
-The configuration is ``alink_tpu.config.ALinkConfig`` (no jax), with the
-reference's flag names.  Not ported yet: the adversarial and fgsm noise
-channels (the default bank holds "adversarial", so run with e.g.
-``--noise gaussian,saltpepper,poisson,speckle``) and ``max_restarts``.
+The configuration is ``alink_tpu_torch.config.ALinkConfig``, with the
+reference's flag names; the default noise bank ends in "adversarial", the
+one-pixel DE attack on the live student.  The run is on the CUDA card
+unless ``--device cpu`` (or ``run_alink(device="cpu")``) asks for the CPU;
+without a card it raises.  Not ported yet: ``max_restarts``.
 
-    python -m alink_tpu_torch.drivers.alink --synthetic_people 8 \\
-        --noise gaussian,saltpepper,poisson,speckle --device cuda
+    python -m alink_tpu_torch.drivers.alink --synthetic_people 8
 """
 
 from __future__ import annotations
@@ -25,11 +25,12 @@ import typing
 
 import torch
 
-from alink_tpu.config import ALinkConfig
 from alink_tpu_torch import train as T
-from alink_tpu_torch.active.committee import check_noise_names
+from alink_tpu_torch.active.committee import MODEL_CHANNELS
 from alink_tpu_torch.active.loop import NOT_PORTED, ALinkLoop, ALinkState
+from alink_tpu_torch.config import ALinkConfig
 from alink_tpu_torch.drivers import common
+from alink_tpu_torch.ops.pairwise import pair_scores
 
 
 def add_config_flags(parser: argparse.ArgumentParser, config_cls) -> None:
@@ -65,21 +66,42 @@ def parse_config(argv=None, config_cls=ALinkConfig, **overrides):
     return config_cls(**args)
 
 
+def make_adversarial_predict(featurize):
+    """The student end to end (PredictionWrappedModel, noise.py:153-168):
+    raw pair halves -> teacher features -> M2 probabilities ``(N, 2)``,
+    with the M2 module as the parameter; differentiable in the pixels when
+    grad is enabled."""
+
+    def predict(m2, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        p = pair_scores(m2, featurize(left), featurize(right))
+        return torch.stack([1.0 - p, p], dim=-1)
+
+    return predict
+
+
+def _device(device) -> torch.device:
+    """``device`` as asked; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_alink: no CUDA device; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    return dev
+
+
 def run_alink(config: ALinkConfig, *, featurize=None,
-              n_steps: int | None = None, device=None,
+              n_steps: int | None = None, device="cuda",
               generator: torch.Generator | None = None) -> ALinkState:
     """The whole ALINK.py flow on ``device``; returns the final loop state.
 
     ``featurize`` replaces the VGGFace-ResNet50 teacher (random weights from
     ``config.seed`` otherwise).  ``n_steps`` (samples per pretraining
     epoch) defaults to ``config.train_steps``.  Initialisations and
-    shuffles draw from ``generator`` (CPU), the loop's noise from a
-    generator on ``device``; neither can match ``jax.random``.
+    shuffles draw from ``generator`` (CPU), the loop's noise and attacks
+    from a generator on ``device``; neither can match ``jax.random``.
     """
-    check_noise_names(config.noise)
     if config.max_restarts > 0:
         raise NotImplementedError(NOT_PORTED.format("max_restarts"))
-    device = torch.device(device if device is not None else "cpu")
+    device = _device(device)
     if n_steps is None:
         n_steps = config.train_steps
     g = generator if generator is not None else \
@@ -119,11 +141,15 @@ def run_alink(config: ALinkConfig, *, featurize=None,
         batch_size=config.batch_size, refine=config.refine_models,
         n_steps=n_steps, device=device)
 
+    # Both model channels need the end-to-end predict function.
+    adv = (make_adversarial_predict(featurize)
+           if set(MODEL_CHANNELS) & set(config.noise) else None)
     replay = common.replay_generator(config.seed + 2, data.plain_feats,
                                      data.imp_feats, config.batch_size)
     loop = ALinkLoop(config, pool_uint8=True, featurize=featurize,
                      committee=committee, m2_state=m2, replay_gen=replay,
-                     host_generator=g, device=device)
+                     host_generator=g, adversarial_predict=adv,
+                     device=device)
     if config.loop_checkpoint:
         raise NotImplementedError(NOT_PORTED.format("loop_checkpoint"))
     state = loop.run(data.plain_raw, dig_post_raw)
@@ -134,8 +160,7 @@ def run_alink(config: ALinkConfig, *, featurize=None,
 
 def main(argv=None) -> None:
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                     else "cpu")
+    pre.add_argument("--device", default="cuda")
     known, rest = pre.parse_known_args(argv)
     run_alink(parse_config(rest), device=known.device)
 

@@ -55,6 +55,7 @@ def featurize_stacks(stacks: PersonStacks, featurize: Callable,
                      device=None, batch: int = 256) -> PersonStacks:
     """One padded pass over all images of the stacks, ``batch`` at a time."""
 
+    @torch.no_grad()
     def run(flat: np.ndarray) -> np.ndarray:
         outs = [featurize(torch.as_tensor(flat[i:i + batch], device=device))
                 .float().cpu().numpy()

@@ -146,7 +146,8 @@ class VGGFaceResNet50(nn.Module):
 
     The stride-1 blocks' weights are folded into the kernel's layout once
     and cached; loading a state dict or moving the module drops the cache.
-    Call ``refold()`` after editing parameters in place.
+    Call ``refold()`` after editing parameters in place.  The parameters do
+    not require grad: the teacher is frozen.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
@@ -167,6 +168,8 @@ class VGGFaceResNet50(nn.Module):
                                           device))
                 cin = 4 * w
         self.blocks = nn.ModuleList(blocks)
+        # The frozen teacher: gradients flow to the input only (FGSM).
+        self.requires_grad_(False)
         self._folded: tuple[torch.device, list] | None = None
         self.register_load_state_dict_post_hook(_drop_folded)
 
@@ -192,11 +195,15 @@ class VGGFaceResNet50(nn.Module):
             self._folded = (device, stages)
         return self._folded[1]
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor,
                 chain: Callable = bottleneck_chain) -> torch.Tensor:
         """``chain`` runs each stage's stride-1 blocks (NHWC in and out);
-        the default dispatches on the tensor's device."""
+        the default dispatches on the tensor's device.
+
+        Differentiable in ``x`` when grad is enabled (FGSM): the stride-1
+        blocks then give dx only (``ops.resblock.BottleneckS1``), so the
+        featurizer is frozen; inference callers run it under
+        ``torch.no_grad``."""
         dt = self.dtype
         y = x.to(dt).permute(0, 3, 1, 2)
         ph = _tf_same_pad(y.shape[2], 7, 2)
@@ -212,7 +219,8 @@ class VGGFaceResNet50(nn.Module):
                 # Divergence from the JAX default forward: fused-block
                 # numerics (f32 BN epilogues) here on every device, where
                 # flax runs bf16 BN; relative max error <= 0.02 between them.
-                y = chain(y.permute(0, 2, 3, 1), run).permute(0, 3, 1, 2)
+                y = chain(y.permute(0, 2, 3, 1), run).permute(0, 3, 1,
+                                                              2).to(dt)
         return y.float().mean(dim=(2, 3))
 
 

@@ -20,8 +20,8 @@ are kept:
 - ``plain``       — identity.
 
 Integer images are computed in f32 (gaussian, poisson, speckle).  The
-adversarial channels (one-pixel DE, FGSM) need the student model and are
-not ported yet (ROADMAP, Slice 1 item 8).
+adversarial channels (one-pixel DE, FGSM) need the student model: they
+live in ``ops/attack.py`` and ``Committee.attack_model`` runs them.
 """
 
 from __future__ import annotations

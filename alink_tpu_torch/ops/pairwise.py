@@ -49,11 +49,13 @@ def _apply_head(x: torch.Tensor, layers) -> torch.Tensor:
     return torch.sigmoid(logits[..., 1] - logits[..., 0])
 
 
-@torch.no_grad()
 def pair_scores(head, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """P(genuine) for aligned feature pairs (N, D) x (N, D) -> (N,)."""
-    return _apply_head(torch.abs(left.float() - right.float()),
-                       head_weights(head))
+    """P(genuine) for aligned feature pairs (N, D) x (N, D) -> (N,);
+    differentiable in the features when grad is enabled (the FGSM channel's
+    predict function), with the bf16 roundings passing gradients through.
+    The head's parameters enter as constants."""
+    layers = tuple((w.detach(), b.detach()) for w, b in head_weights(head))
+    return _apply_head(torch.abs(left.float() - right.float()), layers)
 
 
 # Row blocks of the plain scorer bound its (rows, M, D) |l - r| tile.

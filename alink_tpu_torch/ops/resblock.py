@@ -9,8 +9,8 @@ Counterpart of ``alink_tpu/ops/resblock.py``.  One block is
 
 with bf16 operands, f32 accumulation and BN folded to f32 scale/shift: the
 rounding points of the TPU kernel ``_block_kernel``.  Layout is NHWC, as in
-the JAX package.  The flat padded row layout of the TPU kernel
-(``qconv.flat_layout``) exists for TPU sublane shifts and is not ported.
+the JAX package; the kernel keeps its own flat halo layout in shared
+memory (``ops/qconv.py`` holds the chainable flat layout of K4).
 
 - ``bottleneck_s1_reference`` — plain PyTorch (f32 products of bf16-rounded
   operands; TF32 is off package-wide, ``alink_tpu_torch/__init__.py``).
@@ -18,7 +18,14 @@ the JAX package.  The flat padded row layout of the TPU kernel
   it takes weights already in its layout (``kernel_weights``), so a model
   prepares them once and no launch copies a weight.
 - ``bottleneck_chain``        — dispatcher over a chain of blocks: the kernel
-  on CUDA tensors, the plain version on CPU tensors.
+  on CUDA tensors, the plain version on CPU tensors.  With grad enabled and
+  an input that requires it, each block runs as ``BottleneckS1``, a
+  ``torch.autograd.Function`` whose forward is that dispatch and whose
+  backward gives dx only (the teacher is frozen): it recomputes y1, y2 and
+  the ReLU masks with differentiable PyTorch ops (f32, the 3x3 as a
+  convolution) and back-propagates through them.  The TPU kernel has no
+  backward either: the JAX package's FGSM gradient comes from XLA's
+  autodiff of unfused convolutions.
 """
 
 from __future__ import annotations
@@ -64,6 +71,12 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 def bottleneck_s1_reference(x: torch.Tensor,
                             wts: BottleneckWeights) -> torch.Tensor:
     """Plain stride-1 bottleneck: (N, H, W, Cin) -> (N, H, W, Cout) bf16."""
+    return _block_plain(x, wts)
+
+
+def _block_plain(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
+    """The plain version's arithmetic, differentiable when grad is enabled
+    (the card check of the backward compares against its autograd)."""
     n, h, w, cin = x.shape
     cm, cout = wts.w2.shape
     f = lambda t: t.float()  # noqa: E731
@@ -176,14 +189,63 @@ def bottleneck_chain_reference(x: torch.Tensor,
     return x
 
 
+def _block_forward(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
+    """One block without autograd: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if x.is_cuda:
+        return bottleneck_s1_kernel(x, wts)
+    if x.device.type != "cpu":
+        raise ValueError(f"no bottleneck for device {x.device}")
+    return bottleneck_s1_reference(x, wts)
+
+
+def _block_recompute(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
+    """The block as differentiable f32 ops on NHWC ``x`` (the backward's
+    recompute): the operands and y1, y2 rounded to bf16 as the kernel
+    rounds them, so the ReLU masks are the forward's up to the order of
+    f32 sums; the rounding passes gradients through unchanged."""
+    n, h, w, cin = x.shape
+    cm = wts.w1.shape[1]
+    f = lambda t: t.float()  # noqa: E731
+    y1 = _bf16(torch.relu(x.reshape(-1, cin) @ _bf16(f(wts.w1)) * f(wts.s1)
+                          + f(wts.b1)))
+    y1 = y1.reshape(n, h, w, cm).permute(0, 3, 1, 2)
+    k3 = _bf16(f(wts.w3)).permute(3, 2, 0, 1)        # HWIO -> OIHW
+    y2 = F.conv2d(y1, k3, padding=1).permute(0, 2, 3, 1).reshape(-1, cm)
+    y2 = _bf16(torch.relu(y2 * f(wts.s2) + f(wts.b2)))
+    y3 = y2 @ _bf16(f(wts.w2)) * f(wts.s3) + f(wts.b3)
+    xf = x.reshape(-1, cin)
+    sc = xf if wts.wp is None else \
+        xf @ _bf16(f(wts.wp)) * f(wts.sp) + f(wts.bp)
+    return torch.relu(y3 + sc).reshape(n, h, w, -1)
+
+
+class BottleneckS1(torch.autograd.Function):
+    """One stride-1 block with a gradient for its input only."""
+
+    @staticmethod
+    def forward(ctx, x, *wts):
+        wts = BottleneckWeights(*wts)
+        ctx.wts = wts
+        ctx.save_for_backward(x)
+        return _block_forward(x, wts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = _bf16(x.detach()).requires_grad_(True)
+            out = _block_recompute(xr, ctx.wts)
+            (dx,) = torch.autograd.grad(out, xr, grad_out.float())
+        return (dx.to(x.dtype),) + (None,) * len(BottleneckWeights._fields)
+
+
 def bottleneck_chain(x: torch.Tensor,
                      blocks: tuple[BottleneckWeights, ...]) -> torch.Tensor:
     """A chain of stride-1 bottlenecks: the kernel on a CUDA tensor, the
-    plain version on a CPU tensor.  NHWC in, NHWC bf16 out."""
-    if x.is_cuda:
-        for wts in blocks:
-            x = bottleneck_s1_kernel(x, wts)
-        return x
-    if x.device.type != "cpu":
-        raise ValueError(f"no bottleneck for device {x.device}")
-    return bottleneck_chain_reference(x, blocks)
+    plain version on a CPU tensor; differentiable in ``x`` when grad is
+    enabled and ``x`` requires it.  NHWC in, NHWC bf16 out."""
+    grad = torch.is_grad_enabled() and x.requires_grad
+    for wts in blocks:
+        x = BottleneckS1.apply(x, *wts) if grad else _block_forward(x, wts)
+    return x

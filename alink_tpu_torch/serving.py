@@ -151,6 +151,7 @@ class Verifier:
     def embed(self, images) -> torch.Tensor:
         return self.featurize(images)
 
+    @torch.no_grad()
     def verify_pairs(self, left_images, right_images) -> torch.Tensor:
         """(N,) P(genuine) for image pairs."""
         return pairwise.pair_scores(self.head, self.embed(left_images),

@@ -10,13 +10,18 @@ Prints (last line JSON):
   kernel K3, cuDNN convolutions and everything else;
 - one loop chunk of 64 pairs split into its steps: the committee's
   features of the clean pairs, the four-channel noise bank, the student's
-  features of the noisy pairs, and the student's scores.
+  features of the noisy pairs, and the student's scores;
+- the adversarial channels' steps: the one-pixel DE attack on 16 pairs
+  (pixel_count 40, popsize 250, maxiter cut to 2) with its generations,
+  s per generation, nfev and K3 launches, and FGSM on 64 pairs (forward
+  plus backward through K3) in ms with its K3 launches.
 """
 
 from __future__ import annotations
 
 import json
 import statistics
+import time
 
 import numpy as np
 import torch
@@ -29,6 +34,8 @@ SEED = 0
 BATCH = 128
 CHUNK = 64
 NOISE = ("gaussian", "saltpepper", "poisson", "speckle")
+A2_DE_PAIRS = 16
+A2_DE_MAXITER = 2     # the attack's default is 50
 
 
 def chunk_breakdown(featurize, committee, head, left: torch.Tensor,
@@ -53,6 +60,64 @@ def chunk_breakdown(featurize, committee, head, left: torch.Tensor,
     with torch.no_grad():
         return {k: summary(windows(fn, dev, n_windows, iters))["median_ms"]
                 for k, fn in steps.items()}
+
+
+def a2_breakdown(predict, params, left: torch.Tensor, right: torch.Tensor,
+                 labels: torch.Tensor, g: torch.Generator,
+                 de_pairs: int = A2_DE_PAIRS,
+                 maxiter: int = A2_DE_MAXITER, **de_kw) -> dict[str, float]:
+    """The adversarial channels of one chunk: the one-pixel DE attack on the
+    first ``de_pairs`` pairs (wall time of its init and of each generation,
+    nfev, K3 launches) and FGSM on all pairs (ms, K3 launches), each run
+    once after a warm-up FGSM call.  ``predict`` is the student end to
+    end (``drivers.alink.make_adversarial_predict``)."""
+    from alink_tpu_torch.ops import attack
+    from alink_tpu_torch.ops.resblock import bottleneck_s1_kernel as k3
+
+    dev = left.device
+    marks = []
+    solver = attack.differential_evolution
+
+    def timed_fitness(fitness):
+        def fn(x, idx):
+            out = fitness(x, idx)
+            _sync(dev)
+            marks.append(time.perf_counter())
+            return out
+        return fn
+
+    def recorded(fitness, *a, **k):
+        return solver(timed_fitness(fitness), *a, **k)
+
+    attack.fgsm_pairs(predict, params, left, right, labels)
+    out: dict[str, float] = {}
+    attack.differential_evolution = recorded
+    try:
+        k3.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            attack.one_pixel_attack_pairs(
+                predict, params, left[:de_pairs], right[:de_pairs],
+                labels[:de_pairs], g, maxiter=maxiter, **de_kw)
+        _sync(dev)
+        t1 = time.perf_counter()
+    finally:
+        attack.differential_evolution = solver
+    steps = np.diff([t0] + marks)
+    out.update(de_pairs=de_pairs, de_s=t1 - t0, de_init_s=float(steps[0]),
+               de_generations=len(steps) - 1,
+               de_s_per_generation=[float(v) for v in steps[1:]],
+               de_k3_launches=k3.launches)
+    k3.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    attack.fgsm_pairs(predict, params, left, right, labels)
+    _sync(dev)
+    out.update(fgsm_pairs=left.shape[0],
+               fgsm_ms=(time.perf_counter() - t0) * 1e3,
+               fgsm_k3_launches=k3.launches)
+    return out
 
 
 def device_split(fn, calls: int = 3) -> dict[str, float]:
@@ -123,6 +188,22 @@ def main() -> int:
     _sync(dev)
     print(f"chunk of {CHUNK} pairs, ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in report["chunk_ms"].items()), flush=True)
+
+    from alink_tpu_torch.drivers.alink import make_adversarial_predict
+
+    labels = torch.nn.functional.one_hot(torch.as_tensor(
+        rng.integers(0, 2, CHUNK), device=dev), 2).float()
+    a2 = a2_breakdown(make_adversarial_predict(featurize), heads[1],
+                      pool[:CHUNK], pool[CHUNK:], labels,
+                      torch.Generator(dev).manual_seed(SEED))
+    report["a2"] = a2
+    print(f"one-pixel DE on {a2['de_pairs']} pairs (maxiter cut 50 -> "
+          f"{A2_DE_MAXITER}): {a2['de_s']:.3f} s, init {a2['de_init_s']:.3f} "
+          f"s, {a2['de_generations']} generations at "
+          + ", ".join(f"{v:.3f}" for v in a2["de_s_per_generation"])
+          + f" s, K3 launches {a2['de_k3_launches']}; FGSM on "
+          f"{a2['fgsm_pairs']} pairs {a2['fgsm_ms']:.2f} ms, K3 launches "
+          f"{a2['fgsm_k3_launches']}", flush=True)
     print(json.dumps(report), flush=True)
     return 0
 

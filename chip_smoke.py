@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths, the A2 channel and the
+int8 conv once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -25,16 +26,35 @@ e. K3 (fused stride-1 bottleneck) against its plain version at the five
    CUDA-event times and TFLOP/s;
 f. the A-LINK training slice at full width: ``run_alink`` (synthetic DFW
    tree, VGGFace-ResNet50 (3, 4, 6, 3) bf16 with seeded random weights,
-   ``SiameseHead`` (512, 64), the default noise bank without "adversarial")
+   ``SiameseHead`` (512, 64), the default noise bank without "adversarial",
+   which phase (g) runs)
    with the counters zeroed just before and read just after (K3 must have
    run); then ``test_accuracy`` of the student over the plain features,
    with K1's counter zeroed just before and read just after.  Epochs,
    steps and people are cut (each cut is printed).  Then the featurizer
    with K3 against the same model with K3's plain version on 64 faces, and
-   featurize images/s at batch 128 (7 windows).
+   featurize images/s at batch 128 (7 windows);
+g. the A2 channel at full width (VGGFace-ResNet50 (3, 4, 6, 3) 224x224 bf16
+   with K3, ``SiameseHead`` (512, 64), random weights from the seed): the
+   one-pixel DE attack on 8 pairs (pixel_count 40, popsize 250, maxiter cut
+   to 3: at most 40 pixels change per pair, a pixel written once holds an
+   integer in [0, 255], a pair that stopped early reaches its target; s per
+   generation, nfev, K3 launches); FGSM on 32 pairs (ms), with K3's
+   backward held block by block to the autograd of its plain arithmetic at
+   the FGSM pass's inputs and upstream gradients (relative L2 2e-2, signs
+   of the components above 1e-3 of the largest); one ``ALinkLoop``
+   iteration with the default five-channel bank, built as ``run_alink``
+   builds it (slab and maxiter cut), with its per-phase timings;
+h. K4 (int8 3x3 conv on the flat layout) on its op path at the five
+   LResNet100E-II stage shapes of ``benchmarks/bench_qconv.py``, batch 64,
+   and a conv -> prelu_quant -> add_lead -> conv chain, with its counter
+   zeroed just before and read just after; then the kernel against its
+   plain version (max |diff| 0 on bf16 and int8 outputs, relative 1e-5 on
+   f32), kernel, plain and bf16 ``F.conv2d`` ms, useful TOPS and the bound.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (its
+bound from the shapes, the card's peaks and memory rate); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -210,8 +230,30 @@ def phase_kernels(dev, g, rng):
         imgs, Ms, (112, 112)))
     print(f"K2 64x160x160x3 -> 112x112 f32: kernel {k2_ms:.4f} ms, plain "
           f"{k2_plain:.4f} ms", flush=True)
-    return head, {"pair_score": (k1_err, k1_ms, k1_plain),
-                  "affine_warp": (k2_err, k2_ms, k2_plain)}
+    # Bounds from the shapes: K1's head in bf16 on the tensor cores over
+    # f32 features; K2 moves its f32 photos in and chips out.
+    n, m, d = rows.shape[0], cols.shape[0], rows.shape[1]
+    k1_ops = n * m * (d + 2 * d * 512 + 2 * 512 * 64 + 2 * 64 * 2)
+    k1_bytes = 4 * (n * d + m * d + n * m) + 2 * (d * 512 + 512 * 64 + 128)
+    k2_bytes = 4 * (imgs.numel() + BATCH * 112 * 112 * 3)
+    k2_ops = 8 * BATCH * 112 * 112 * 3
+    return head, {
+        "pair_score": kernel_numbers(k1_err, k1_ms, k1_plain, k1_ops,
+                                     H100_BF16_TFLOPS, k1_bytes),
+        "affine_warp": kernel_numbers(k2_err, k2_ms, k2_plain, k2_ops,
+                                      H100_F32_TFLOPS, k2_bytes)}
+
+
+def kernel_numbers(err, ms, plain, ops, peak_tera, nbytes, library=None):
+    """One entry of the ``kernels`` line: the bound is the larger of the
+    operations over the card's peak for their type and the bytes over its
+    memory rate."""
+    t_ops = ops / (peak_tera * 1e12) * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return {"err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library}
 
 
 # K3 against its plain version on the card, at the five stride-1 block
@@ -229,6 +271,8 @@ K3_EXACT_LIMIT = 1e-6
 # neighbouring bf16; held relative to the largest output.
 K3_FLOAT_LIMIT = 1e-2
 H100_BF16_TFLOPS = 989.0
+H100_F32_TFLOPS = 67.0          # outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
 
 
 def k3_flops(n, hw, cin, cm, cout, proj) -> float:
@@ -281,7 +325,7 @@ def phase_k3(dev, g):
     from alink_tpu_torch.ops import resblock
 
     err_all = 0.0
-    ms_fwd = plain_fwd = 0.0
+    ms_fwd = plain_fwd = bound_fwd = ops_fwd = bytes_fwd = 0.0
     for hw, cin, cm, cout, proj, count in K3_SHAPES:
         name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
         for exact in (True, False):
@@ -326,9 +370,22 @@ def phase_k3(dev, g):
               flush=True)
         ms_fwd += count * ms
         plain_fwd += count * plain
+        ops = k3_flops(K3_BATCH, hw, cin, cm, cout, proj)
+        nbytes = 2 * (x.numel() + K3_BATCH * hw * hw * cout
+                      + sum(t.numel() for t in (wts.w1, wts.w3, wts.w2,
+                                                wts.wp) if t is not None))
+        t_ops = ops / (H100_BF16_TFLOPS * 1e12) * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        bound_fwd += count * max(t_ops, t_bytes)
+        ops_fwd += count * t_ops
+        bytes_fwd += count * t_bytes
     print(f"K3 13 blocks of one forward, batch {K3_BATCH}: kernel "
-          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms", flush=True)
-    return err_all, ms_fwd, plain_fwd
+          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, bound {bound_fwd:.4f} "
+          f"ms", flush=True)
+    return {"err": err_all, "ms": ms_fwd, "plain_ms": plain_fwd,
+            "bound_ms": bound_fwd,
+            "bound_by": "operations" if ops_fwd >= bytes_fwd else "bytes",
+            "library_ms": None}
 
 
 # Phase (f): the A-LINK training slice at full width.  Cuts, each printed:
@@ -340,7 +397,7 @@ F_TRAIN_STEPS = 512    # samples per pretraining epoch, default 320,000
 F_ALINK_BS = 4         # people per slab, default 16: 3 slabs of 160 pairs
 F_BATCH_SEND = 4       # queue size that triggers a finetune, default 64
 F_DEVICE_BATCH = 64    # pairs per chunk, default 1,024
-F_NOISE = ("gaussian", "saltpepper", "poisson", "speckle")  # no adversarial
+F_NOISE = ("gaussian", "saltpepper", "poisson", "speckle")  # DE: phase (g)
 F_FEAT_BATCH = 128
 # Featurizer with K3 against the same model with K3's plain version: both
 # round at the same points, f32 sums in other orders.
@@ -380,7 +437,7 @@ def phase_alink(dev, smi: str):
                  f"alink_bs 16 -> {F_ALINK_BS}",
                  f"batch_send 64 -> {F_BATCH_SEND}",
                  f"device_batch 1024 -> {F_DEVICE_BATCH}",
-                 "noise: the default bank without 'adversarial'"):
+                 "noise: the default bank without 'adversarial' (phase g)"):
         print(f"alink cut: {line}", flush=True)
     t0 = time.perf_counter()
     featurize, model = common.make_resnet50_featurizer(
@@ -468,6 +525,355 @@ def phase_alink(dev, smi: str):
           f"main-thread CPU {s['cpu_median_ms']:.2f} ms/batch), "
           f"VGGFace-ResNet50 bf16 {F_IMAGE}x{F_IMAGE} on {smi}", flush=True)
     return counts
+
+
+# Phase (g): the A2 channel at full width.  Cuts, each printed:
+G_DE_PAIRS = 8        # pairs under the one-pixel attack
+G_DE_MAXITER = 3      # ALinkConfig / attack_all default 50
+G_FGSM_PAIRS = 32
+G_LOOP_PEOPLE = 1     # people in the loop's slab, default 16
+G_LOOP_MAXITER = 2    # the loop's one-pixel generations, default 50
+# K3's backward against the autograd of its plain arithmetic, block by block
+# at the inputs and upstream gradients of the FGSM pass: relative L2 error,
+# and the share of components above 1e-3 of the largest whose sign agrees.
+G_DX_LIMIT = 2e-2
+G_DX_SIGN = 0.9999
+
+
+def _k3_tap():
+    """A stride-1 chain through K3's autograd Function that records each
+    block's input, weights and upstream gradient."""
+    from alink_tpu_torch.ops import resblock
+
+    recs = []
+
+    def chain(x, blocks):
+        for wts in blocks:
+            rec = [x.detach(), wts, None]
+            recs.append(rec)
+            x = resblock.BottleneckS1.apply(x, *wts)
+            x.register_hook(lambda gy, rec=rec: rec.__setitem__(2, gy))
+        return x
+
+    return chain, recs
+
+
+def phase_a2(dev, smi: str) -> int:
+    """(g): one-pixel DE, FGSM and one loop iteration with the default bank
+    at full width; returns K3's launches in them."""
+    from alink_tpu_torch.active.committee import Committee
+    from alink_tpu_torch.active.loop import ALinkLoop
+    from alink_tpu_torch.config import ALinkConfig
+    from alink_tpu_torch.data import PersonStacks
+    from alink_tpu_torch.drivers import common
+    from alink_tpu_torch.drivers.alink import make_adversarial_predict
+    from alink_tpu_torch.models import SiameseHead, preprocess
+    from alink_tpu_torch.ops import attack, resblock
+    from alink_tpu_torch.train import TrainState
+
+    for line in (f"one-pixel DE on {G_DE_PAIRS} pairs, maxiter 50 -> "
+                 f"{G_DE_MAXITER} (pixel_count 40, popsize 250: m = 200)",
+                 f"FGSM on {G_FGSM_PAIRS} pairs",
+                 f"loop slab {G_LOOP_PEOPLE} person (alink_bs 16), one-pixel"
+                 f" maxiter 50 -> {G_LOOP_MAXITER}"):
+        print(f"a2 cut: {line}", flush=True)
+    g = torch.Generator().manual_seed(SEED + 7)
+    featurize, model = common.make_resnet50_featurizer(
+        torch.Generator().manual_seed(SEED), device=dev)
+    head = SiameseHead(2048, (512, 64), generator=g, device=dev)
+    predict = make_adversarial_predict(featurize)
+    rng = np.random.default_rng(SEED + 7)
+
+    def pairs(n):
+        x = rng.integers(0, 256, (2, n, F_IMAGE, F_IMAGE, 3))
+        return (torch.as_tensor(x[0], dtype=torch.float32, device=dev),
+                torch.as_tensor(x[1], dtype=torch.float32, device=dev))
+
+    k3 = resblock.bottleneck_s1_kernel
+    total = 0
+
+    # One-pixel DE.  The solver's result is read through a wrapper.
+    left, right = pairs(G_DE_PAIRS)
+    with torch.no_grad():
+        p0 = predict(head, left, right)
+    # Target the class the student does not predict for half of the pairs.
+    target = torch.argmax(p0, -1) ^ (torch.arange(G_DE_PAIRS, device=dev) % 2)
+    labels = torch.nn.functional.one_hot(target, 2).float()
+    seen = {}
+    solver = attack.differential_evolution
+
+    def recorded(*a, **k):
+        seen["result"] = solver(*a, **k)
+        return seen["result"]
+
+    attack.differential_evolution = recorded
+    k3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        al, ar = attack.one_pixel_attack_pairs(
+            predict, head, left, right, labels,
+            torch.Generator(dev).manual_seed(SEED), maxiter=G_DE_MAXITER)
+    torch.cuda.synchronize()
+    t_de = time.perf_counter() - t0
+    attack.differential_evolution = solver
+    res = seen["result"]
+    de_launches = k3.launches
+    total += de_launches
+    gens = int(res.nit.max())
+    check(res.population.shape == (G_DE_PAIRS, 200, 200),
+          f"DE population {tuple(res.population.shape)}")
+    diff_l = (al != left).any(-1)
+    diff_r = (ar != right).any(-1)
+    changed = diff_l.flatten(1).sum(1) + diff_r.flatten(1).sum(1)
+    check(bool((changed <= 40).all()), f"DE wrote {changed.tolist()} pixels")
+    # A pixel written once holds an integer in [0, 255]; one written twice
+    # by the same candidate holds the mean of its writes (the JAX package's
+    # semantics), still in [0, 255].
+    px = res.x.to(torch.int32).reshape(G_DE_PAIRS, 40, 5)
+    h2, wd = 2 * F_IMAGE, F_IMAGE
+    lin = (px[..., 0].clamp(0, h2 - 1) * wd + px[..., 1].clamp(0, wd - 1))
+    hits = torch.zeros(G_DE_PAIRS, h2 * wd, device=dev).scatter_add_(
+        1, lin.long(), torch.ones_like(lin, dtype=torch.float32))
+    both = torch.cat([al, ar], dim=1).reshape(G_DE_PAIRS, h2 * wd, 3)
+    once = both[hits == 1]
+    written = both[hits >= 1]
+    check(bool((once == torch.round(once)).all()) and bool(
+        ((written >= 0) & (written <= 255)).all()),
+        "DE wrote values that are not integers in [0, 255]")
+    check(bool((diff_l.flatten(1).sum(1) + diff_r.flatten(1).sum(1)
+                <= (hits >= 1).sum(1)).all()),
+          "DE changed pixels it did not write")
+    with torch.no_grad():
+        p1 = predict(head, al, ar)
+    stopped = res.stopped_early
+    check(bool((torch.argmax(p1, -1) == target)[stopped].all()),
+          "a pair that stopped early does not reach its target")
+    print(f"a2: one-pixel DE {G_DE_PAIRS} pairs: {t_de:.3f} s, {gens} "
+          f"generation(s) (nit {res.nit.tolist()}), "
+          f"{t_de / max(gens, 1):.3f} s/generation incl. init, nfev "
+          f"{res.nfev.tolist()}, stopped early {stopped.tolist()}, pixels "
+          f"changed {changed.tolist()}, K3 launches {de_launches}", flush=True)
+
+    # FGSM, then K3's backward block by block against its plain arithmetic.
+    left, right = pairs(G_FGSM_PAIRS)
+    labels = torch.nn.functional.one_hot(torch.as_tensor(
+        rng.integers(0, 2, G_FGSM_PAIRS), device=dev), 2).float()
+    k3.launches = 0
+    attack.fgsm_pairs(predict, head, left, right, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fl, fr = attack.fgsm_pairs(predict, head, left, right, labels)
+    torch.cuda.synchronize()
+    ms_fgsm = (time.perf_counter() - t0) * 1e3
+    total += k3.launches
+    step = torch.cat([(fl - left).abs(), (fr - right).abs()])
+    check(bool(torch.isfinite(step).all()) and float(step.max()) == 2.0,
+          "FGSM step is not 2 pixels")
+    print(f"a2: FGSM {G_FGSM_PAIRS} pairs (forward + backward through K3): "
+          f"{ms_fgsm:.2f} ms; K3 launches {k3.launches} over 2 calls; "
+          f"{100 * float((step == 2).float().mean()):.1f} % of pixels moved",
+          flush=True)
+
+    tap, recs = _k3_tap()
+    feat_tap = make_adversarial_predict(
+        lambda im: model(preprocess.vggface(im, version=2), chain=tap))
+    lh, rh = left.clone().requires_grad_(True), right.clone().requires_grad_(
+        True)
+    p = feat_tap(head, lh, rh)
+    torch.autograd.grad(-torch.mean(torch.sum(labels * torch.log(p + 1e-12),
+                                              -1)), (lh, rh))
+    worst_rel, worst_sign = 0.0, 1.0
+    for x, wts, gy in recs:
+        xa = x.clone().requires_grad_(True)
+        (da,) = torch.autograd.grad(resblock.BottleneckS1.apply(xa, *wts),
+                                    xa, gy)
+        xb = x.float().clone().requires_grad_(True)
+        (db,) = torch.autograd.grad(resblock._block_plain(xb, wts), xb,
+                                    gy.float())
+        da = da.float()
+        rel = float((da - db).norm() / db.norm())
+        big = db.abs() > 1e-3 * db.abs().max()
+        agree = float((torch.sign(da) == torch.sign(db))[big].float().mean())
+        worst_rel, worst_sign = max(worst_rel, rel), min(worst_sign, agree)
+    print(f"a2: K3 backward vs autograd of its plain arithmetic, "
+          f"{len(recs)} blocks of the FGSM pass: worst relative L2 "
+          f"{worst_rel:.3e} (limit {G_DX_LIMIT}), worst sign agreement above "
+          f"1e-3 of max {worst_sign:.6f} (limit {G_DX_SIGN})", flush=True)
+    check(worst_rel <= G_DX_LIMIT, f"K3 dx relative {worst_rel}")
+    check(worst_sign >= G_DX_SIGN, f"K3 dx sign agreement {worst_sign}")
+
+    # The same FGSM gradient end to end, through K3 and through its plain
+    # chain: printed, not held (the forward's bf16 differences move the
+    # random head's near-cancelling |l - r| inputs and its ReLU masks).
+    def input_grad(chain):
+        pr = make_adversarial_predict(
+            lambda im: model(preprocess.vggface(im, version=2), chain=chain))
+        lq, rq = left.clone().requires_grad_(True), right.clone(
+        ).requires_grad_(True)
+        q = pr(head, lq, rq)
+        return torch.cat([t.flatten() for t in torch.autograd.grad(
+            -torch.mean(torch.sum(labels * torch.log(q + 1e-12), -1)),
+            (lq, rq))])
+
+    def plain_chain(x, blocks):
+        for wts in blocks:
+            x = resblock._block_plain(x, wts)
+        return x
+
+    ga, gb = input_grad(resblock.bottleneck_chain), input_grad(plain_chain)
+    print(f"a2: FGSM input gradient, K3 path vs plain chain end to end: "
+          f"relative L2 {float((ga - gb).norm() / gb.norm()):.3e}, sign "
+          f"agreement {float((torch.sign(ga) == torch.sign(gb)).float().mean()):.4f}"
+          " (reported only)", flush=True)
+
+    # One loop iteration with the default bank, built as run_alink builds it.
+    cfg = ALinkConfig(image_res=(F_IMAGE, F_IMAGE), seed=SEED)
+    check(cfg.noise[-1] == "adversarial" and len(cfg.noise) == 5,
+          f"default bank {cfg.noise}")
+    heads = [SiameseHead(2048, generator=g, device=dev) for _ in range(2)]
+    committee = Committee.from_param_list(
+        heads[0], [h.state_dict() for h in heads], cfg.noise)
+    loop = ALinkLoop(cfg, pool_uint8=True, featurize=featurize,
+                     committee=committee, m2_state=TrainState(head),
+                     host_generator=torch.Generator().manual_seed(SEED),
+                     adversarial_predict=predict,
+                     adversarial_kwargs={"maxiter": G_LOOP_MAXITER},
+                     device=dev)
+    img = rng.integers(0, 256, (2, G_LOOP_PEOPLE, 2, F_IMAGE, F_IMAGE, 3))
+    stacks = [PersonStacks(img[i].astype(np.float32),
+                           np.full(G_LOOP_PEOPLE, 2, np.int32))
+              for i in range(2)]
+    k3.launches = 0
+    t0 = time.perf_counter()
+    log = loop.run_iteration(*stacks)
+    torch.cuda.synchronize()
+    t_it = time.perf_counter() - t0
+    total += k3.launches
+    tm = loop.timings.as_dict()
+    check(log.pairs > 0 and log.queried <= log.selected <= log.pairs,
+          f"loop log {log}")
+    print(f"a2: one loop iteration, default bank {cfg.noise}, {log.pairs} "
+          f"pairs: {t_it:.3f} s; per phase s " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(tm.items(),
+                                                 key=lambda kv: -kv[1]))
+          + f"; K3 launches {k3.launches}; {log}", flush=True)
+    print(f"a2: K3 launches in (g) {total} on {smi}", flush=True)
+    return total
+
+
+# Phase (h): K4 against its plain version at LResNet100E-II's stage shapes
+# (benchmarks/bench_qconv.py:57-59): (H, Cin, Cout), batch 64.
+K4_SHAPES = ((56, 64, 64), (28, 128, 128), (14, 256, 256), (7, 512, 512),
+             (14, 512, 512))
+K4_BATCH = 64
+K4_F32_LIMIT = 1e-5     # relative, tests/test_qconv.py:27's bound
+H100_INT8_TOPS = 1979.0
+
+
+def _k4_case(hw, cin, cout, g, dev):
+    from alink_tpu_torch.ops import qconv
+
+    x = torch.randint(-127, 128, (K4_BATCH, hw, hw, cin), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-20, 21, (3, 3, cin, cout), generator=g,
+                      dtype=torch.int8)
+    vec = lambda lo, hi: (torch.rand(cout, generator=g) * (hi - lo)  # noqa
+                          + lo).to(dev)
+    scale, bias = vec(0.001, 0.01), vec(-1.0, 1.0)
+    alpha, qs = vec(0.1, 0.4), vec(0.5, 2.0)
+    lo = qconv.flat_layout(K4_BATCH, hw, hw)
+    return x.to(dev), w.to(dev), scale, bias, alpha, qs, lo
+
+
+def phase_k4(dev, g, smi: str):
+    """(h): K4's op path (``conv3x3_s1_int8`` at the five shapes and a
+    conv -> prelu_quant -> add_lead -> conv chain at 14x14x256) with its
+    counter zeroed just before and read just after, then the kernel
+    against its plain version on the same operands."""
+    import torch.nn.functional as F
+
+    from alink_tpu_torch.ops import qconv
+
+    k4 = qconv.conv3x3_s1_int8_flat_kernel
+    cases = [_k4_case(*s, g, dev) for s in K4_SHAPES]
+    k4.launches = 0
+    for x, w, scale, bias, *_ in cases:
+        out = qconv.conv3x3_s1_int8(x, w, scale, bias)
+        check(out.shape == x.shape[:3] + (w.shape[3],)
+              and bool(torch.isfinite(out.float()).all()), "K4 op output")
+    x, w, scale, bias, alpha, qs, lo = cases[2]
+    q2 = qconv.conv3x3_s1_int8_flat(qconv.nhwc_to_flat(x, lo), w, scale,
+                                    bias, lo, alpha=alpha, quant_scale=qs,
+                                    epilogue="prelu_quant")
+    chain_k = qconv.conv3x3_s1_int8_flat(qconv.add_lead(q2, lo), w, scale,
+                                         bias, lo, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches = k4.launches
+    print(f"K4 op path (5 shapes + chain): launches {launches}", flush=True)
+    check(launches >= len(K4_SHAPES) + 2, "K4 was not launched by its path")
+
+    ops = qconv._operands(qconv.nhwc_to_flat(x, lo), w, scale, bias, alpha, qs)
+    q2_p = qconv.conv3x3_s1_int8_flat_reference(ops, lo, "prelu_quant")
+    chain_p = qconv.conv3x3_s1_int8_flat_reference(
+        ops._replace(x=qconv.add_lead(q2_p, lo)), lo, "affine",
+        torch.float32)
+    err = maxdiff(chain_k, chain_p)
+    print(f"K4 chain conv -> prelu_quant -> add_lead -> conv 14x14 256->256: "
+          f"int8 stage max|diff| {maxdiff(q2, q2_p):.3e}, f32 output max|diff| "
+          f"{err:.3e}", flush=True)
+    check(maxdiff(q2, q2_p) == 0 and err <= K4_F32_LIMIT * float(
+        chain_p.abs().max()), "K4 chain disagrees with its plain version")
+
+    err_all, rows = 0.0, []
+    for (hw, cin, cout), (x, w, scale, bias, alpha, qs, lo) in zip(K4_SHAPES,
+                                                                 cases):
+        name = f"{hw}x{hw} {cin}->{cout}"
+        ops = qconv._operands(qconv.nhwc_to_flat(x, lo), w, scale, bias,
+                              alpha, qs)
+        for ep, dt in (("affine", torch.bfloat16), ("affine", torch.float32),
+                       ("prelu_quant", torch.bfloat16)):
+            got = k4(ops, lo, ep, dt)
+            want = qconv.conv3x3_s1_int8_flat_reference(ops, lo, ep, dt)
+            torch.cuda.synchronize()
+            e = maxdiff(got, want)
+            limit = (K4_F32_LIMIT * float(want.abs().max())
+                     if got.dtype == torch.float32 else 0.0)
+            nz = float((want != 0).float().mean())
+            print(f"K4 {name} {ep} {str(got.dtype)[6:]}: max|diff| {e:.3e} "
+                  f"(limit {limit:.3e}), {100 * nz:.0f} % non-zero",
+                  flush=True)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"K4 {name}: bad output")
+            check(e <= limit and nz > 0.2, f"K4 {name} {ep}: max|diff| {e}")
+            err_all = max(err_all, e)
+        ms = cuda_ms(lambda: k4(ops, lo, "affine", torch.bfloat16))
+        plain = cuda_ms(lambda: qconv.conv3x3_s1_int8_flat_reference(
+            ops, lo, "affine", torch.bfloat16), iters=5)
+        xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        lib = cuda_ms(lambda: F.conv2d(xc, wc, padding=1))
+        useful = 2.0 * K4_BATCH * hw * hw * 9 * cin * cout
+        moved = (ops.x.numel() + ops.w.numel()
+                 + lo.n * lo.r * ops.w.shape[2] * 2)
+        t_ops = useful / (H100_INT8_TOPS * 1e12) * 1e3
+        t_bytes = moved / H100_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"K4 {name} batch {K4_BATCH}, affine bf16: kernel {ms:.4f} ms "
+              f"({useful / ms / 1e9:.1f} useful TOPS), plain {plain:.4f} ms, "
+              f"bf16 F.conv2d {lib:.4f} ms, bound {bound:.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+              f"{100 * bound / ms:.1f} % of it) on {smi}", flush=True)
+        rows.append((ms, plain, lib, bound, t_ops >= t_bytes))
+    ms, plain, lib = (sum(r[i] for r in rows) for i in range(3))
+    bound = sum(r[3] for r in rows)
+    by = "operations" if sum(r[4] for r in rows) * 2 > len(rows) else "bytes"
+    print(f"K4 five shapes summed: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bf16 F.conv2d {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+    return launches, {"err": err_all, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
 
 def rng_images(n: int) -> np.ndarray:
@@ -615,21 +1021,30 @@ def main() -> int:
 
     numbers["bottleneck"] = phase_k3(dev, g)
     alink_counts = phase_alink(dev, smi)
+    torch.cuda.empty_cache()
+    a2_launches = phase_a2(dev, smi)
+    torch.cuda.empty_cache()
+    counts["qconv"], numbers["qconv"] = phase_k4(dev, g, smi)
     # Each kernel's count is the one from the main path that runs it:
-    # serving for K1 and K2, training for K3.
-    counts["bottleneck"] = alink_counts["bottleneck"]
+    # serving for K1 and K2, training and the A2 channel for K3, its own op
+    # path for K4.
+    counts["bottleneck"] = alink_counts["bottleneck"] + a2_launches
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),
                "affine_warp": ("alink_tpu_torch/csrc/affine_warp.cu",
                                "alink_tpu/ops/image.py:230"),
                "bottleneck": ("alink_tpu_torch/csrc/bottleneck.cu",
-                              "alink_tpu/ops/resblock.py:72")}
+                              "alink_tpu/ops/resblock.py:72"),
+               "qconv": ("alink_tpu_torch/csrc/qconv.cu",
+                         "alink_tpu/ops/qconv.py:116")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain}
-        for name, (err, ms, plain) in numbers.items()]}), flush=True)
+         "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+         "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+         "library_ms": v["library_ms"]}
+        for name, v in numbers.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

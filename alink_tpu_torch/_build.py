@@ -36,14 +36,15 @@ _SIGNATURES = {
     # interp_nearest, stream
     "alink_affine_warp": [_P, _I, _P, _P] + [_I] * 8 + [_P],
     # x, n, h, w, cin, cm, cout, w1, s1, b1, w3, s2, b2, w2, s3, b3, wp, sp,
-    # bp, out, stream
-    "alink_bottleneck": [_P] + [_I] * 6 + [_P] * 14,
+    # bp, out, slots, split, blocks, stream
+    "alink_bottleneck": [_P] + [_I] * 6 + [_P] * 13 + [_I] * 3 + [_P],
     # rows, cols, n, m, d, dp, w1, b1, h1p, w2, b2, h2p, wo, bo, out, stream
     "alink_pair_score": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P],
-    # x, x_rows, wt, scale, bias, alpha, qscale, out, out_rows, cin, cout,
-    # lead, wp, r, h, w, mode, stream
-    "alink_qconv": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P],
+    # x, x_rows, ldx, cin_k, wk, cout_k, scale, bias, alpha, qscale, out,
+    # ldo, mode, n, h, w, wp, r, lead, stages, resident, box_rows, nbox,
+    # grid_x, stream
+    "alink_qconv": [_P, _I, _I, _I, _P, _I] + [_P] * 5 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()
@@ -92,7 +93,8 @@ def build() -> Path:
              for c in cmds]
     outs = [p.communicate()[0] for p in procs]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    link = [nvcc, "-shared", "-Wno-deprecated-gpu-targets", "-o", str(tmp),
+            *(str(o) for o in objs)]
     log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
     failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
     if not failed:

@@ -15,8 +15,10 @@ memory (``ops/qconv.py`` holds the chainable flat layout of K4).
 - ``bottleneck_s1_reference`` — plain PyTorch (f32 products of bf16-rounded
   operands; TF32 is off package-wide, ``alink_tpu_torch/__init__.py``).
 - ``bottleneck_s1_kernel``    — the hand-written kernel ``csrc/bottleneck.cu``;
-  it takes weights already in its layout (``kernel_weights``), so a model
-  prepares them once and no launch copies a weight.
+  it takes weights already in its layout (``kernel_weights``: the JAX-layout
+  matrices in bf16 plus, in the ``packed`` field, the copy the kernel reads,
+  ``pack_bottleneck``), so a model prepares them once and no launch copies
+  a weight.
 - ``bottleneck_chain``        — dispatcher over a chain of blocks: the kernel
   on CUDA tensors, the plain version on CPU tensors.  With grad enabled and
   an input that requires it, each block runs as ``BottleneckS1``, a
@@ -30,12 +32,30 @@ memory (``ops/qconv.py`` holds the chainable flat layout of K4).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from alink_tpu_torch import _build
+
+
+class BottleneckPacked(NamedTuple):
+    """The weight matrices in the order ``csrc/bottleneck.cu`` stages them
+    (``pack_bottleneck``): for each pass of ``np`` output columns (128, or
+    64 for a 64-wide matrix) and each 32-row K-slab, the (np, 32) bf16
+    transposed slab is one contiguous 4-8 KB run, its 16-byte chunks
+    swizzled as the kernel's shared rows are.
+
+    w1: (Cm / np, Cin / 32, np, 32)      w3: (Cm / np, 9, Cm / 32, np, 32)
+    w2: (Cout / np, Cm / 32, np, 32)     wp: (Cout / np, Cin / 32, np, 32)
+    """
+
+    w1: torch.Tensor
+    w3: torch.Tensor
+    w2: torch.Tensor
+    wp: torch.Tensor | None
 
 
 class BottleneckWeights(NamedTuple):
@@ -46,6 +66,8 @@ class BottleneckWeights(NamedTuple):
     w2: (Cm, Cout)       s3/b3: (Cout,)
     wp: (Cin, Cout) projection shortcut (None = identity, Cin == Cout)
     sp/bp: (Cout,)
+    packed: the kernel's copy of the matrices (``kernel_weights`` sets it
+    where the kernel takes the shapes); the plain version ignores it.
     """
 
     w1: torch.Tensor
@@ -60,6 +82,7 @@ class BottleneckWeights(NamedTuple):
     wp: torch.Tensor | None = None
     sp: torch.Tensor | None = None
     bp: torch.Tensor | None = None
+    packed: BottleneckPacked | None = None
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -99,33 +122,195 @@ def _block_plain(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
     return out.reshape(n, h, w, cout)
 
 
-# Limits of csrc/bottleneck.cu: x is staged 32 channels at a time (kKC),
-# products run on 16-wide fragments, and y1 (113 rows) plus y2 (64 rows) of
-# Cm bf16 channels and 23.5 KB of staging must fit the 227 KB of shared
-# memory a block can have on an H100, which bounds Cm at 576.
-_CIN_STEP = 32
-_C_STEP = 16
-_MAX_CM = 576
+# Limits of csrc/bottleneck.cu: x is staged in pairs of 32-channel slabs,
+# the weights in passes of 128 output columns (or one pass of 64), and y1
+# (102 rows) plus y2 (64 rows) of Cm bf16 channels and a ring of at least 2
+# 30 KB entries must fit the 227 KB of shared memory a block can have on an
+# H100, which bounds Cm at 512.  These are narrower than the TPU kernel's
+# (Cin % 32, Cm <= 576) and than this kernel's first design (Cin % 32, Cm
+# and Cout % 16, Cm <= 576): every stride-1 block of VGGFace-ResNet50
+# fits, and other widths raise on the card (ROADMAP.md keeps the item to
+# widen them again).
+_CIN_STEP = 64
+_KS = 32
+_MAX_CM = 512
+
+
+def _width_ok(c: int) -> bool:
+    """A matrix width the kernel's passes tile: 64, or a multiple of 128."""
+    return c == 64 or (c > 0 and c % 128 == 0)
+
+
+def kernel_takes(cin: int, cm: int, cout: int) -> bool:
+    return (cin % _CIN_STEP == 0 and _width_ok(cm) and _width_ok(cout)
+            and cm <= _MAX_CM)
+
+
+def _pass_width(n: int) -> int:
+    return min(n, 128)
+
+
+def _chunk_swizzle(np_: int) -> torch.Tensor:
+    """(np, 4): the 16-byte chunk of a 64-byte row that physical chunk c of
+    row n holds (c ^ ((n >> 1) & 3), the kernel's ``slab_off``)."""
+    n = torch.arange(np_)[:, None]
+    return torch.arange(4)[None, :] ^ ((n >> 1) & 3)
+
+
+def _pack_matrix(m: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> (N / np, K / 32, np, 32) bf16, slabs transposed and
+    swizzled (``BottleneckPacked``)."""
+    k, n = m.shape
+    np_ = _pass_width(n)
+    t = m.to(torch.bfloat16).reshape(k // _KS, _KS, n // np_, np_)
+    t = t.permute(2, 0, 3, 1).reshape(n // np_, k // _KS, np_, 4, 8)
+    idx = _chunk_swizzle(np_).to(m.device)[None, None, :, :, None]
+    return torch.gather(t, 3, idx.expand_as(t)).reshape(
+        n // np_, k // _KS, np_, _KS).contiguous()
+
+
+def _unpack_matrix(t: torch.Tensor) -> torch.Tensor:
+    """``_pack_matrix``'s inverse: (K, N)."""
+    passes, slabs, np_, _ = t.shape
+    t = t.reshape(passes, slabs, np_, 4, 8)
+    idx = _chunk_swizzle(np_).to(t.device)[None, None, :, :, None]
+    t = torch.gather(t, 3, idx.expand_as(t))     # the swizzle is an XOR
+    return t.reshape(passes, slabs, np_, _KS).permute(1, 3, 0, 2).reshape(
+        slabs * _KS, passes * np_)
+
+
+@torch.no_grad()
+def pack_bottleneck(wts: BottleneckWeights) -> BottleneckPacked:
+    """The matrices of ``wts`` in ``csrc/bottleneck.cu``'s staging order
+    (``BottleneckPacked``), on their device."""
+    cm = wts.w1.shape[1]
+    w3 = torch.stack([_pack_matrix(wts.w3[dy, dx]) for dy in range(3)
+                      for dx in range(3)], dim=1)
+    return BottleneckPacked(
+        _pack_matrix(wts.w1), w3.reshape(w3.shape[0], 9, cm // _KS,
+                                         *w3.shape[3:]).contiguous(),
+        _pack_matrix(wts.w2),
+        None if wts.wp is None else _pack_matrix(wts.wp))
+
+
+def unpack_bottleneck(p: BottleneckPacked) -> tuple[torch.Tensor, ...]:
+    """``pack_bottleneck``'s inverse: (w1, w3 HWIO, w2, wp or None), bf16."""
+    w3 = torch.stack([_unpack_matrix(p.w3[:, t]) for t in range(9)])
+    return (_unpack_matrix(p.w1), w3.reshape(3, 3, *w3.shape[1:]),
+            _unpack_matrix(p.w2),
+            None if p.wp is None else _unpack_matrix(p.wp))
 
 
 _MATRICES = ("w1", "w3", "w2", "wp")
 
 
+# Tiling of csrc/bottleneck.cu: one 8 x 8 tile of output pixels per block;
+# per cluster of 2 or 4 blocks where the tiles are fewer than half the SMs;
+# or one persistent block per SM walking the tiles where they are short (Cm
+# <= 128) and outnumber the SMs.  y1 on the tile's 10 x 10 halo (plus a
+# guard row before and a row after), y2 on its 64 pixels, and a ring of
+# 2-4 entries, each two consecutive slabs (8 KB of weights and 7 KB of x).
+# ``launch_plan`` decides each launch and the wrapper passes its ring depth,
+# cluster size and grid to the kernel's entry point, which checks them.
+_TILE = 8
+_Y1_ROWS = 2 + (_TILE + 2) ** 2
+_ENTRY = 2 * (128 * _KS * 2 + 112 * _KS * 2)
+_MAX_SLOTS = 4
+_MAX_SMEM = 232448
+_SMS = 132                     # streaming multiprocessors of an H100 SXM
+
+
+class BottleneckPlan(NamedTuple):
+    """How ``csrc/bottleneck.cu`` runs one launch: the ring depth, cluster
+    size and grid its entry point is given, and the slab sequence its
+    cursor walks."""
+
+    tiles_x: int
+    tiles_y: int
+    tiles: int              # n * tiles_x * tiles_y
+    split: int              # blocks per tile (a cluster when > 1)
+    blocks: int             # tiles * split, or one per SM (persistent)
+    slots: int              # ring entries
+    smem: int               # dynamic shared memory per block (bytes)
+    # The slab sequence of the block of each rank in a cluster:
+    # (stage, pass, tap, k0, proj, last of its pass).
+    schedule: tuple[tuple[tuple[int, int, int, int, bool, bool], ...], ...]
+
+
+def _a128(b: int) -> int:
+    return -(-b // 128) * 128
+
+
+def _smem(cm: int, slots: int) -> int:
+    return (_a128(_Y1_ROWS * cm * 2) + _a128(_TILE * _TILE * cm * 2)
+            + slots * _ENTRY + 16 * _MAX_SLOTS + 16)
+
+
+def _schedule(cin: int, cm: int, cout: int, proj: bool, passes12: range,
+              passes3: range) -> tuple:
+    sched = []
+    for pas in passes12:
+        for k0 in range(0, cin, _KS):
+            sched.append((1, pas, 0, k0, False, k0 + _KS == cin))
+    for pas in passes12:
+        for tap in range(9):
+            for k0 in range(0, cm, _KS):
+                sched.append((2, pas, tap, k0, False,
+                              tap == 8 and k0 + _KS == cm))
+    for pas in passes3:
+        for k0 in range(0, cm, _KS):
+            sched.append((3, pas, 0, k0, False, not proj and k0 + _KS == cm))
+        for k0 in range(0, cin if proj else 0, _KS):
+            sched.append((3, pas, 0, k0, True, k0 + _KS == cin))
+    return tuple(sched)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, h: int, w: int, cin: int, cm: int, cout: int,
+                proj: bool, sms: int = _SMS) -> BottleneckPlan:
+    """The kernel's grid, cluster size, ring depth and slab schedules for
+    one launch on a card of ``sms`` SMs (the wrapper passes the card's
+    count); block b walks tiles b, b + blocks / split, ..."""
+    fits = [s for s in range(_MAX_SLOTS, 1, -1) if _smem(cm, s) <= _MAX_SMEM]
+    if not fits:
+        raise ValueError(f"bottleneck kernel: Cm {cm} does not fit shared "
+                         "memory")
+    tx, ty = -(-w // _TILE), -(-h // _TILE)
+    tiles = n * tx * ty
+    p12, p3 = cm // _pass_width(cm), cout // _pass_width(cout)
+    split = next((k for k in (4, 2) if p12 % k == 0 and p3 % k == 0
+                  and tiles * k <= sms), 1)
+    per12, per3 = p12 // split, p3 // split
+    sched = tuple(_schedule(cin, cm, cout, proj,
+                            range(r * per12, (r + 1) * per12),
+                            range(r * per3, (r + 1) * per3))
+                  for r in range(split))
+    persistent = split == 1 and cm <= 128 and tiles > sms
+    return BottleneckPlan(tx, ty, tiles, split,
+                          sms if persistent else tiles * split, fits[0],
+                          _smem(cm, fits[0]), sched)
+
+
 @torch.no_grad()
 def kernel_weights(wts: BottleneckWeights, device=None) -> BottleneckWeights:
     """``wts`` in the layout ``bottleneck_s1_kernel`` reads: the weight
-    matrices bf16, scale and shift f32, all contiguous on ``device``.  The
-    plain version gives the same result on either form (it rounds the
-    matrices to bf16 itself)."""
-    return BottleneckWeights(*(
+    matrices bf16, scale and shift f32, all contiguous on ``device``, and
+    the packed copy the kernel stages (``pack_bottleneck``) where the
+    kernel takes the shapes.  The plain version gives the same result on
+    either form (it rounds the matrices to bf16 itself)."""
+    kw = BottleneckWeights(*(
         None if t is None else t.to(
             device, torch.bfloat16 if name in _MATRICES else torch.float32
         ).contiguous()
-        for name, t in zip(BottleneckWeights._fields, wts)))
+        for name, t in zip(BottleneckWeights._fields[:-1], wts[:-1])))
+    cin, cm = kw.w1.shape
+    if kernel_takes(cin, cm, kw.w2.shape[1]):
+        kw = kw._replace(packed=pack_bottleneck(kw))
+    return kw
 
 
 def _check_kernel_layout(wts: BottleneckWeights, dev) -> None:
-    for name, t in zip(BottleneckWeights._fields, wts):
+    for name, t in zip(BottleneckWeights._fields[:-1], wts[:-1]):
         want = torch.bfloat16 if name in _MATRICES else torch.float32
         if t is not None and (t.device != dev or t.dtype != want
                               or not t.is_contiguous()):
@@ -135,13 +320,28 @@ def _check_kernel_layout(wts: BottleneckWeights, dev) -> None:
                 f"weights from kernel_weights(wts, {dev}) ({want} contiguous)")
 
 
+def _check_packed(wts: BottleneckWeights, dev) -> None:
+    p = wts.packed
+    if p is None:
+        raise ValueError("bottleneck_s1_kernel: no packed weights; pass "
+                         f"weights from kernel_weights(wts, {dev})")
+    for name, t, m in zip(BottleneckPacked._fields, p,
+                          (wts.w1, wts.w3, wts.w2, wts.wp)):
+        if (t is None) != (m is None) or t is not None and (
+                t.device != dev or t.dtype != torch.bfloat16
+                or not t.is_contiguous() or t.numel() != m.numel()):
+            raise ValueError(f"bottleneck_s1_kernel: packed {name} does not "
+                             f"match {name}; pass weights from "
+                             f"kernel_weights(wts, {dev})")
+
+
 @torch.no_grad()
 def bottleneck_s1_kernel(x: torch.Tensor,
                          wts: BottleneckWeights) -> torch.Tensor:
     """Launch ``csrc/bottleneck.cu`` on a CUDA tensor (N, H, W, Cin), with
     ``wts`` from ``kernel_weights`` on the same device.
 
-    Takes Cin % 32 == 0, Cm and Cout % 16 == 0, Cm <= 576.
+    Takes Cin % 64 == 0, Cm and Cout 64 or a multiple of 128, Cm <= 512.
     ``bottleneck_s1_kernel.launches`` counts the launches.
     """
     if not x.is_cuda:
@@ -156,22 +356,29 @@ def bottleneck_s1_kernel(x: torch.Tensor,
                          f"{tuple(wts.w3.shape)}, w2 {tuple(wts.w2.shape)}")
     if wts.wp is None and cin != cout:
         raise ValueError("identity shortcut requires Cin == Cout")
-    if cin % _CIN_STEP or cm % _C_STEP or cout % _C_STEP or cm > _MAX_CM:
+    if not kernel_takes(cin, cm, cout):
         raise ValueError(
-            f"bottleneck kernel takes Cin % {_CIN_STEP} == 0, Cm and Cout % "
-            f"{_C_STEP} == 0 and Cm <= {_MAX_CM} (shared memory); got Cin "
-            f"{cin}, Cm {cm}, Cout {cout}")
+            f"bottleneck kernel takes Cin % {_CIN_STEP} == 0, Cm and Cout 64 "
+            f"or a multiple of 128 and Cm <= {_MAX_CM} (shared memory); got "
+            f"Cin {cin}, Cm {cm}, Cout {cout}")
     dev = x.device
     _check_kernel_layout(wts, dev)
+    _check_packed(wts, dev)
+    plan = launch_plan(n, h, w, cin, cm, cout, wts.wp is not None,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
     x = x.to(torch.bfloat16).contiguous()
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=dev)
-    # w3 is HWIO (3, 3, Cm, Cm) contiguous: the (9, Cm, Cm) taps the .cu reads.
-    ptrs = [None if t is None else t.data_ptr() for t in wts]
+    pk = wts.packed
+    ptrs = [None if t is None else t.data_ptr() for t in
+            (pk.w1, wts.s1, wts.b1, pk.w3, wts.s2, wts.b2, pk.w2, wts.s3,
+             wts.b3, pk.wp, wts.sp, wts.bp)]
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.alink_bottleneck(x.data_ptr(), n, h, w, cin, cm, cout,
-                                      *ptrs, out.data_ptr(), stream)
+                                      *ptrs, out.data_ptr(), plan.slots,
+                                      plan.split, plan.blocks, stream)
     bottleneck_s1_kernel.launches += 1
     _build.check(status, "bottleneck")
     return out

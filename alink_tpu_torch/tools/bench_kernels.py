@@ -1,0 +1,299 @@
+"""Time kernels K3 (fused bottleneck) and K4 (int8 3x3 conv) on the card at
+the shapes their paths give them.
+
+    python -m alink_tpu_torch.tools.bench_kernels        # ~1 min on one H100
+
+Prints, per shape (last line JSON):
+
+- K3 at the five stride-1 block shapes of VGGFace-ResNet50 at 224x224, at
+  batch 32 (``chip_smoke.py`` (e)'s batch) and 256 (``featurize_stacks``
+  and the one-pixel DE's ``EVAL_BATCH``): the kernel's launch alone
+  (weights from ``kernel_weights``) and, as a reference only, the same
+  block as an unfused bf16 cuDNN sequence (``unfused_block``: three or
+  four ``F.conv2d`` calls plus the elementwise BN, ReLU and add);
+- K4 at LResNet100E-II's five stage shapes, batch 64: the kernel's launch
+  on operands already packed, the op path ``conv3x3_s1_int8`` (NHWC in and
+  out, packing included) and bf16 ``F.conv2d`` on the same integer data.
+
+All times are CUDA-event means over back-to-back calls after a warm-up,
+in windows of at least 25 ms (``cuda_ms``).  A kernel's time and the
+cuDNN yardsticks are device time per call (``graph_ms``: 20 calls
+captured in one CUDA graph and replayed, each capture checked to have
+run the work); the time per call from Python, the wrapper's host work
+included, is printed beside the kernel's (``kernel_ms`` gives both).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+SEED = 0
+# (H, Cin, Cm, Cout, projection, blocks of this shape in one forward)
+K3_SHAPES = ((55, 64, 64, 256, True, 1), (55, 256, 64, 256, False, 2),
+             (28, 512, 128, 512, False, 3), (14, 1024, 256, 1024, False, 5),
+             (7, 2048, 512, 2048, False, 2))
+K3_BATCHES = (32, 256)
+# (H, Cin, Cout) at batch 64 (benchmarks/bench_qconv.py:57-59)
+K4_SHAPES = ((56, 64, 64), (28, 128, 128), (14, 256, 256), (7, 512, 512),
+             (14, 512, 512))
+K4_BATCH = 64
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "-i", "0"], capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            min_window_ms: float = 25.0) -> float:
+    """Mean milliseconds per call from CUDA events around back-to-back
+    calls after ``warmup`` calls: at least ``iters`` calls in a window of
+    at least ``min_window_ms``, lengthening the window (the shorter ones
+    only warm the card's clocks up) so that a kernel of a few microseconds
+    is not timed over a fraction of a millisecond."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n = iters
+    while True:
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        if ms >= min_window_ms or n >= 20000:
+            return ms / n
+        n = min(20000, max(2 * n, int(1.2 * n * min_window_ms / max(ms, 1e-3))))
+
+
+def _same(got: torch.Tensor, want: torch.Tensor, exact: bool) -> bool:
+    if exact:
+        return torch.equal(got, want)
+    got, want = got.float(), want.float()
+    return bool(torch.isfinite(got).all()) and float(
+        (got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True) -> float:
+    """Device milliseconds per call: ``calls`` calls of ``fn`` (which returns
+    a tensor) captured in one CUDA graph and replayed back to back
+    (``cuda_ms`` around the replay), so that the host's work per call (the
+    wrapper's checks, the ctypes launch) is not timed, only the kernels and
+    the gaps between them.
+
+    Raises unless the graph runs the work: ``counter`` (a kernel wrapper,
+    whose ``launches`` counts its launches) must rise by ``calls`` during
+    the capture, and one replay must rewrite the last call's output, filled
+    with a sentinel first, to what an eager call gives (bit-equal when
+    ``exact``, else within 1e-2 of its largest magnitude)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            want = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    want = want.clone()
+    graph = torch.cuda.CUDAGraph()
+    before = None if counter is None else counter.launches
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            got = fn()
+    if counter is not None and counter.launches - before != calls:
+        raise RuntimeError(f"graph_ms: {counter.__name__} launched "
+                           f"{counter.launches - before} times in a capture "
+                           f"of {calls} calls")
+    got.fill_(float("nan") if got.is_floating_point() else 77)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not _same(got, want, exact):
+        raise RuntimeError("graph_ms: the replayed graph did not compute "
+                           "what an eager call computes")
+    ms = cuda_ms(graph.replay, iters=3, warmup=2) / calls
+    del graph, got
+    return ms
+
+
+def kernel_ms(fn, counter) -> tuple[float, float]:
+    """(device ms per call, ``graph_ms``; ms per call from Python,
+    ``cuda_ms``) of a kernel wrapper's call ``fn``.  Raises where the device
+    time is below a hundredth of the time per call from Python, which no
+    kernel launched from Python reaches: a capture that timed nothing."""
+    ms = graph_ms(fn, counter=counter)
+    call = cuda_ms(fn)
+    if ms * 100 < call:
+        raise RuntimeError(f"kernel_ms: {counter.__name__} {ms:.6f} ms on the "
+                           f"device against {call:.4f} ms per call")
+    return ms, call
+
+
+def k3_float_weights(cin, cm, cout, proj, g):
+    """Random folded-BN bottleneck weights (f32, CPU, JAX layouts)."""
+    from alink_tpu_torch.ops.resblock import BottleneckWeights
+
+    def mat(shape, fan_in):
+        return torch.randn(shape, generator=g) * fan_in ** -0.5
+
+    def bn(c):
+        return (torch.rand(c, generator=g) + 0.5,
+                torch.randn(c, generator=g) * 0.1)
+
+    wts = [mat((cin, cm), cin), *bn(cm), mat((3, 3, cm, cm), 9 * cm),
+           *bn(cm), mat((cm, cout), cm), *bn(cout)]
+    if proj:
+        wts += [mat((cin, cout), cin), *bn(cout)]
+    return BottleneckWeights(*wts)
+
+
+def unfused_block(wts, dev):
+    """The bottleneck as bf16 cuDNN convolutions plus elementwise BN, ReLU
+    and add on channels-last NCHW views of NHWC tensors: a yardstick for
+    K3, not its arithmetic (BN runs in bf16 here)."""
+    bf = torch.bfloat16
+
+    def k1x1(m):                       # (in, out) -> (out, in, 1, 1)
+        return m.t()[:, :, None, None].to(dev, bf).contiguous(
+            memory_format=torch.channels_last)
+
+    def vec(v):
+        return v.to(dev, bf)[None, :, None, None]
+
+    w1, w2 = k1x1(wts.w1), k1x1(wts.w2)
+    w3 = wts.w3.permute(3, 2, 0, 1).to(dev, bf).contiguous(
+        memory_format=torch.channels_last)
+    wp = None if wts.wp is None else k1x1(wts.wp)
+    s1, b1, s2, b2, s3, b3 = (vec(v) for v in (wts.s1, wts.b1, wts.s2,
+                                              wts.b2, wts.s3, wts.b3))
+    sp, bp = (None, None) if wp is None else (vec(wts.sp), vec(wts.bp))
+
+    def run(x):                         # x (N, H, W, C) bf16 contiguous
+        xc = x.permute(0, 3, 1, 2)
+        y = torch.relu(F.conv2d(xc, w1) * s1 + b1)
+        y = torch.relu(F.conv2d(y, w3, padding=1) * s2 + b2)
+        y = F.conv2d(y, w2) * s3 + b3
+        sc = xc if wp is None else F.conv2d(xc, wp) * sp + bp
+        return torch.relu(y + sc).permute(0, 2, 3, 1)
+
+    return run
+
+
+def bench_k3(dev, batches=K3_BATCHES, g=None) -> dict:
+    """K3's launch alone and the unfused cuDNN sequence, per shape and
+    summed over the 13 blocks of one forward, at each batch."""
+    from alink_tpu_torch.ops import resblock
+
+    g = g or torch.Generator().manual_seed(SEED)       # weights
+    gd = torch.Generator(device=dev).manual_seed(SEED)  # activations
+    out: dict = {}
+    for batch in batches:
+        rows, ms_fwd, call_fwd, ref_fwd = [], 0.0, 0.0, 0.0
+        for hw, cin, cm, cout, proj, count in K3_SHAPES:
+            wts = k3_float_weights(cin, cm, cout, proj, g)
+            kw = resblock.kernel_weights(wts, dev)
+            x = torch.relu(torch.randn((batch, hw, hw, cin), generator=gd,
+                                       device=dev)).to(torch.bfloat16)
+            ms, call = kernel_ms(
+                lambda: resblock.bottleneck_s1_kernel(x, kw),
+                resblock.bottleneck_s1_kernel)
+            ref = graph_ms(lambda f=unfused_block(wts, dev): f(x),
+                           exact=False)
+            name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
+            print(f"K3 {name} batch {batch}: kernel {ms:.4f} ms ({call:.4f} "
+                  f"per call from Python), unfused bf16 cuDNN sequence "
+                  f"{ref:.4f} ms", flush=True)
+            rows.append({"shape": name, "count": count, "ms": ms,
+                         "call_ms": call, "unfused_ms": ref})
+            ms_fwd += count * ms
+            call_fwd += count * call
+            ref_fwd += count * ref
+            del x, kw
+        print(f"K3 13 blocks of one forward, batch {batch}: kernel "
+              f"{ms_fwd:.4f} ms ({call_fwd:.4f} per call from Python), "
+              f"unfused bf16 cuDNN sequence {ref_fwd:.4f} ms", flush=True)
+        out[str(batch)] = {"shapes": rows, "ms": ms_fwd, "call_ms": call_fwd,
+                           "unfused_ms": ref_fwd}
+    return out
+
+
+def k4_case(hw, cin, cout, g, dev):
+    """Seeded int8 data and weights and f32 vectors for one K4 shape."""
+    from alink_tpu_torch.ops import qconv
+
+    x = torch.randint(-127, 128, (K4_BATCH, hw, hw, cin), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-20, 21, (3, 3, cin, cout), generator=g,
+                      dtype=torch.int8)
+
+    def vec(lo, hi):
+        return (torch.rand(cout, generator=g) * (hi - lo) + lo).to(dev)
+
+    scale, bias = vec(0.001, 0.01), vec(-1.0, 1.0)
+    alpha, qs = vec(0.1, 0.4), vec(0.5, 2.0)
+    lo = qconv.flat_layout(K4_BATCH, hw, hw)
+    return x.to(dev), w.to(dev), scale, bias, alpha, qs, lo
+
+
+def k4_launch(x, w, scale, bias, alpha, qs, lo):
+    """A closure that launches K4 alone on operands prepared here once: the
+    flat input and the packed weights."""
+    from alink_tpu_torch.ops import qconv
+
+    xf = qconv.nhwc_to_flat(x, lo)
+    packed = qconv.pack_conv(w, scale, bias, alpha, qs)
+    return lambda: qconv.conv3x3_s1_int8_flat_kernel(xf, packed, lo)
+
+
+def bench_k4(dev, g=None) -> dict:
+    """K4's launch alone, its op path and bf16 ``F.conv2d`` per shape."""
+    from alink_tpu_torch.ops import qconv
+
+    g = g or torch.Generator().manual_seed(SEED)
+    rows = []
+    for hw, cin, cout in K4_SHAPES:
+        x, w, scale, bias, alpha, qs, lo = k4_case(hw, cin, cout, g, dev)
+        ms, call = kernel_ms(k4_launch(x, w, scale, bias, alpha, qs, lo),
+                             qconv.conv3x3_s1_int8_flat_kernel)
+        op = cuda_ms(lambda: qconv.conv3x3_s1_int8(x, w, scale, bias))
+        xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        lib = graph_ms(lambda: F.conv2d(xc, wc, padding=1), exact=False)
+        name = f"{hw}x{hw} {cin}->{cout}"
+        print(f"K4 {name} batch {K4_BATCH}: launch {ms:.4f} ms ({call:.4f} "
+              f"per call from Python), op path {op:.4f} ms, bf16 F.conv2d "
+              f"{lib:.4f} ms", flush=True)
+        rows.append({"shape": name, "ms": ms, "call_ms": call, "op_ms": op,
+                     "conv2d_ms": lib})
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "call_ms", "op_ms", "conv2d_ms")}
+    print(f"K4 five shapes summed: launch {total['ms']:.4f} ms "
+          f"({total['call_ms']:.4f} per call from Python), op path "
+          f"{total['op_ms']:.4f} ms, bf16 F.conv2d {total['conv2d_ms']:.4f} "
+          "ms", flush=True)
+    return {"shapes": rows, **total}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("bench_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    smi = card()
+    print(smi, flush=True)
+    report = {"card": smi, "k3": bench_k3(dev), "k4": bench_k4(dev)}
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 a. device and build: require CUDA, print the card's name and power limit
    (``nvidia-smi``), build the CUDA kernels from ``alink_tpu_torch/csrc``;
 b. each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, with max |diff| and CUDA-event times of both;
+   serving path's shapes, with max |diff| and CUDA-event times of both
+   (the kernel's as device time, ``bench_kernels.graph_ms``, whose capture
+   is checked to have run the kernel, and per call from Python);
 c. the slice at full width with seeded random weights: ArcFace r100 (bf16)
    behind the MTCNN cascade (typical budgets, open thresholds so every
    budget slot does work), 8 single-image requests through a
@@ -21,9 +23,15 @@ d. ``FaceModel.process`` faces/s at batch 64 (warm, synchronised): the
    median, min and max of 7 windows, and the main thread's CPU time.
    ``python -m alink_tpu_torch.tools.profile_serving`` breaks it down;
 e. K3 (fused stride-1 bottleneck) against its plain version at the five
-   stride-1 block shapes of VGGFace-ResNet50 at 224x224, batch 32: on
-   dyadic data (exact, limit 1e-6) and float data (relative 1e-2), with
-   CUDA-event times and TFLOP/s;
+   stride-1 block shapes of VGGFace-ResNet50 at 224x224, at batch 32, 64
+   and 256 (each launch setup the paths use: clusters of 4 and of 2 at
+   7x7, persistent blocks, one block per tile): on dyadic data (exact,
+   limit 1e-6) and float data (relative 1e-2); then
+   the device time of the launch alone (``bench_kernels.graph_ms``: calls
+   captured in a CUDA graph and replayed; the time per call from Python
+   beside it) per shape and over the 13 blocks of one forward at batch 32
+   and 256, beside the same block as an unfused bf16 cuDNN sequence (a
+   yardstick only), with TFLOP/s;
 f. the A-LINK training slice at full width: ``run_alink`` (synthetic DFW
    tree, VGGFace-ResNet50 (3, 4, 6, 3) bf16 with seeded random weights,
    ``SiameseHead`` (512, 64), the default noise bank without "adversarial",
@@ -48,12 +56,17 @@ g. the A2 channel at full width (VGGFace-ResNet50 (3, 4, 6, 3) 224x224 bf16
 h. K4 (int8 3x3 conv on the flat layout) on its op path at the five
    LResNet100E-II stage shapes of ``benchmarks/bench_qconv.py``, batch 64,
    and a conv -> prelu_quant -> add_lead -> conv chain, with its counter
-   zeroed just before and read just after; then the kernel against its
-   plain version (max |diff| 0 on bf16 and int8 outputs, relative 1e-5 on
-   f32), kernel, plain and bf16 ``F.conv2d`` ms, useful TOPS and the bound.
+   zeroed just before and read just after; then the kernel on operands
+   packed once (``pack_conv``) against its plain version (max |diff| 0 on
+   bf16 and int8 outputs, relative 1e-5 on f32); the launch alone (device
+   time, ``graph_ms``, and per call from Python), the op path call
+   (packing included), plain and bf16 ``F.conv2d`` (``graph_ms``) ms,
+   useful TOPS and the bound of the unpadded problem (Cin and Cout as they
+   are, pixel rows only).
 
 The second-to-last line is a JSON object with one entry per kernel (its
-bound from the shapes, the card's peaks and memory rate); the last line is
+device time ``ms`` and time per call from Python ``call_ms``, its bound
+from the shapes, the card's peaks and memory rate); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -85,18 +98,29 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean milliseconds per call from CUDA events around back-to-back
+    calls (``bench_kernels.cuda_ms``: windows of at least 25 ms)."""
+    from alink_tpu_torch.tools.bench_kernels import cuda_ms as timed
+
+    return timed(fn, iters, warmup)
+
+
+def graph_ms(fn) -> float:
+    """Device milliseconds per call of a library call (``bench_kernels.
+    graph_ms``: calls captured in a CUDA graph and replayed, the host's
+    work not timed, the replay held to an eager call)."""
+    from alink_tpu_torch.tools.bench_kernels import graph_ms as timed
+
+    return timed(fn, exact=False)
+
+
+def kernel_ms(fn, counter) -> tuple[float, float]:
+    """A kernel wrapper's device ms per call and ms per call from Python
+    (``bench_kernels.kernel_ms``: the capture must launch the kernel and
+    the replay recompute its output)."""
+    from alink_tpu_torch.tools.bench_kernels import kernel_ms as timed
+
+    return timed(fn, counter)
 
 
 def maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -182,11 +206,13 @@ def phase_kernels(dev, g, rng):
         check(float(q95 - q05) >= 0.4, f"K1 {name}: scores too narrow to "
               "tell a faulty kernel from a right one")
         k1_err = max(k1_err, err)
-    k1_ms = cuda_ms(lambda: pairwise.score_matrix_kernel(head, rows, cols))
+    k1_ms, k1_call = kernel_ms(
+        lambda: pairwise.score_matrix_kernel(head, rows, cols),
+        pairwise.score_matrix_kernel)
     k1_plain = cuda_ms(
         lambda: pairwise.score_matrix_reference(head, rows, cols), iters=5)
-    print(f"K1 1000x1000x512 (512, 64): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain:.4f} ms", flush=True)
+    print(f"K1 1000x1000x512 (512, 64): kernel {k1_ms:.4f} ms ({k1_call:.4f} "
+          f"per call from Python), plain {k1_plain:.4f} ms", flush=True)
 
     # K2: affine warp, 64 photos 160x160x3 -> 112x112 chips.
     imgs = torch.tensor(rng.uniform(0, 255, (BATCH, IMG, IMG, 3)),
@@ -224,12 +250,14 @@ def phase_kernels(dev, g, rng):
                       f"{err} > {limit}")
                 if x.dtype == torch.float32:
                     k2_err = max(k2_err, err)
-    k2_ms = cuda_ms(lambda: image.affine_warp_batch_kernel(imgs, Ms,
-                                                           (112, 112)))
+    k2_ms, k2_call = kernel_ms(
+        lambda: image.affine_warp_batch_kernel(imgs, Ms, (112, 112)),
+        image.affine_warp_batch_kernel)
     k2_plain = cuda_ms(lambda: image.affine_warp_batch_reference(
         imgs, Ms, (112, 112)))
-    print(f"K2 64x160x160x3 -> 112x112 f32: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain:.4f} ms", flush=True)
+    print(f"K2 64x160x160x3 -> 112x112 f32: kernel {k2_ms:.4f} ms "
+          f"({k2_call:.4f} per call from Python), plain {k2_plain:.4f} ms",
+          flush=True)
     # Bounds from the shapes: K1's head in bf16 on the tensor cores over
     # f32 features; K2 moves its f32 photos in and chips out.
     n, m, d = rows.shape[0], cols.shape[0], rows.shape[1]
@@ -238,31 +266,34 @@ def phase_kernels(dev, g, rng):
     k2_bytes = 4 * (imgs.numel() + BATCH * 112 * 112 * 3)
     k2_ops = 8 * BATCH * 112 * 112 * 3
     return head, {
-        "pair_score": kernel_numbers(k1_err, k1_ms, k1_plain, k1_ops,
-                                     H100_BF16_TFLOPS, k1_bytes),
-        "affine_warp": kernel_numbers(k2_err, k2_ms, k2_plain, k2_ops,
-                                      H100_F32_TFLOPS, k2_bytes)}
+        "pair_score": kernel_numbers(k1_err, k1_ms, k1_call, k1_plain,
+                                     k1_ops, H100_BF16_TFLOPS, k1_bytes),
+        "affine_warp": kernel_numbers(k2_err, k2_ms, k2_call, k2_plain,
+                                      k2_ops, H100_F32_TFLOPS, k2_bytes)}
 
 
-def kernel_numbers(err, ms, plain, ops, peak_tera, nbytes, library=None):
+def kernel_numbers(err, ms, call, plain, ops, peak_tera, nbytes,
+                   library=None):
     """One entry of the ``kernels`` line: the bound is the larger of the
     operations over the card's peak for their type and the bytes over its
     memory rate."""
     t_ops = ops / (peak_tera * 1e12) * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return {"err": err, "ms": ms, "plain_ms": plain,
+    return {"err": err, "ms": ms, "call_ms": call, "plain_ms": plain,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library}
 
 
 # K3 against its plain version on the card, at the five stride-1 block
-# shapes of VGGFace-ResNet50 at 224x224: (H, Cin, Cm, Cout, projection,
-# blocks of this shape in one forward).
-K3_SHAPES = ((55, 64, 64, 256, True, 1), (55, 256, 64, 256, False, 2),
-             (28, 512, 128, 512, False, 3), (14, 1024, 256, 1024, False, 5),
-             (7, 2048, 512, 2048, False, 2))
+# shapes of VGGFace-ResNet50 at 224x224 (bench_kernels.K3_SHAPES), at the
+# batches whose launches differ: 32 (clusters of 4 at 7x7), 64 (clusters of
+# 2: the featurizer check of (f)) and 256 (``featurize_stacks`` and the
+# one-pixel DE's ``EVAL_BATCH``: one block per tile at 14x14 and 7x7,
+# persistent blocks at 55x55 and 28x28, as at every batch).  The plain
+# version is timed at batch 32.
 K3_BATCH = 32
+K3_CHECK_BATCHES = (32, 64, 256)
 # Dyadic data (integer activations, weights in {-1, 0, 1}, BN scales
 # {1, 2} x 2^-k and shifts on the same grid) keeps every f32 product and
 # partial sum exact, so both sides round the same values to bf16: expect 0.
@@ -320,70 +351,97 @@ def k3_weights(cin, cm, cout, proj, g, dev, exact: bool):
 
 def phase_k3(dev, g):
     """(e): K3 against its plain version at the featurizer's five stride-1
-    block shapes, batch 32; returns (max err, kernel ms, plain ms) summed
-    over the 13 blocks of one forward."""
+    block shapes, at batch 32, 64 and 256; then the launch alone at batch
+    32 and 256 (the batch ``featurize_stacks`` and the one-pixel DE give
+    it) beside the same block as an unfused bf16 cuDNN sequence (a
+    yardstick, not ``library_ms``: no single call computes the block).
+    Returns the numbers summed over the 13 blocks of one forward at batch
+    32."""
     from alink_tpu_torch.ops import resblock
+    from alink_tpu_torch.tools.bench_kernels import K3_SHAPES, bench_k3
 
+    gd = torch.Generator(device=dev).manual_seed(SEED)   # activations
     err_all = 0.0
-    ms_fwd = plain_fwd = bound_fwd = ops_fwd = bytes_fwd = 0.0
-    for hw, cin, cm, cout, proj, count in K3_SHAPES:
-        name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
-        for exact in (True, False):
-            wts = k3_weights(cin, cm, cout, proj, g, dev, exact)
-            if exact:
-                x = torch.randint(-2, 3, (K3_BATCH, hw, hw, cin), generator=g)
-            else:
-                x = torch.relu(torch.randn((K3_BATCH, hw, hw, cin),
-                                           generator=g))
-            x = x.to(dev, torch.bfloat16)
-            got = resblock.bottleneck_s1_kernel(x, wts)
-            want = resblock.bottleneck_s1_reference(x, wts)
-            torch.cuda.synchronize()
-            err = maxdiff(got, want)
-            scale = float(want.float().abs().max())
-            nonzero = float((want != 0).float().mean())
-            check(got.shape == want.shape and got.dtype == torch.bfloat16
-                  and bool(torch.isfinite(got.float()).all()),
-                  f"K3 {name}: bad output")
-            if exact:
-                print(f"K3 bottleneck {name} dyadic: max|diff| {err:.3e} "
-                      f"(limit {K3_EXACT_LIMIT}); max|out| {scale:.1f}, "
-                      f"{100 * nonzero:.0f} % non-zero", flush=True)
-                check(err <= K3_EXACT_LIMIT,
-                      f"K3 {name} dyadic: max|diff| {err} > {K3_EXACT_LIMIT}")
-            else:
-                rel = err / max(scale, 1e-30)
-                print(f"K3 bottleneck {name} float: max|diff| {err:.3e}, "
-                      f"relative {rel:.3e} (limit {K3_FLOAT_LIMIT})",
+    plain_fwd = bound_fwd = ops_fwd = bytes_fwd = 0.0
+    for batch in K3_CHECK_BATCHES:
+        for hw, cin, cm, cout, proj, count in K3_SHAPES:
+            name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
+            plan = resblock.launch_plan(
+                batch, hw, hw, cin, cm, cout, proj,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            setup = (f"clusters of {plan.split}" if plan.split > 1 else
+                     "persistent" if plan.blocks < plan.tiles else
+                     "one block per tile")
+            shape = (batch, hw, hw, cin)
+            for exact in (True, False):
+                wts = k3_weights(cin, cm, cout, proj, g, dev, exact)
+                if exact:
+                    x = torch.randint(-2, 3, shape, generator=gd, device=dev)
+                else:
+                    x = torch.relu(torch.randn(shape, generator=gd,
+                                               device=dev))
+                x = x.to(torch.bfloat16)
+                got = resblock.bottleneck_s1_kernel(x, wts)
+                want = resblock.bottleneck_s1_reference(x, wts)
+                torch.cuda.synchronize()
+                err = maxdiff(got, want)
+                scale = float(want.float().abs().max())
+                nonzero = float((want != 0).float().mean())
+                check(got.shape == want.shape and got.dtype == torch.bfloat16
+                      and bool(torch.isfinite(got.float()).all()),
+                      f"K3 {name} batch {batch}: bad output")
+                if exact:
+                    print(f"K3 bottleneck {name} batch {batch} ({setup}, "
+                          f"{plan.blocks} blocks) dyadic: max|diff| "
+                          f"{err:.3e} (limit {K3_EXACT_LIMIT}); max|out| "
+                          f"{scale:.1f}, {100 * nonzero:.0f} % non-zero",
+                          flush=True)
+                    check(err <= K3_EXACT_LIMIT, f"K3 {name} batch {batch} "
+                          f"dyadic: max|diff| {err} > {K3_EXACT_LIMIT}")
+                else:
+                    rel = err / max(scale, 1e-30)
+                    print(f"K3 bottleneck {name} batch {batch} float: "
+                          f"max|diff| {err:.3e}, relative {rel:.3e} (limit "
+                          f"{K3_FLOAT_LIMIT})", flush=True)
+                    check(rel <= K3_FLOAT_LIMIT, f"K3 {name} batch {batch} "
+                          f"float: relative {rel} > {K3_FLOAT_LIMIT}")
+                check(nonzero > 0.2, f"K3 {name} batch {batch}: output "
+                      "mostly zero")
+                err_all = max(err_all, err)
+            if batch == K3_BATCH:
+                plain = cuda_ms(
+                    lambda: resblock.bottleneck_s1_reference(x, wts), iters=5)
+                print(f"K3 {name} batch {batch}: plain {plain:.4f} ms",
                       flush=True)
-                check(rel <= K3_FLOAT_LIMIT,
-                      f"K3 {name} float: relative {rel} > {K3_FLOAT_LIMIT}")
-            check(nonzero > 0.2, f"K3 {name}: output mostly zero")
-            err_all = max(err_all, err)
-        ms = cuda_ms(lambda: resblock.bottleneck_s1_kernel(x, wts), iters=10)
-        plain = cuda_ms(lambda: resblock.bottleneck_s1_reference(x, wts),
-                        iters=5)
-        tf = k3_flops(K3_BATCH, hw, cin, cm, cout, proj) / (ms * 1e-3) / 1e12
-        print(f"K3 {name} batch {K3_BATCH}: kernel {ms:.4f} ms "
+                plain_fwd += count * plain
+                ops = k3_flops(batch, hw, cin, cm, cout, proj)
+                nbytes = 2 * (x.numel() + batch * hw * hw * cout
+                              + sum(t.numel() for t in (wts.w1, wts.w3,
+                                                        wts.w2, wts.wp)
+                                    if t is not None))
+                t_ops = ops / (H100_BF16_TFLOPS * 1e12) * 1e3
+                t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+                bound_fwd += count * max(t_ops, t_bytes)
+                ops_fwd += count * t_ops
+                bytes_fwd += count * t_bytes
+            del x, got, want, wts
+    torch.cuda.empty_cache()
+    times = bench_k3(dev, (K3_BATCH, 256), g)
+    for batch, res in times.items():
+        flops = sum(c * k3_flops(int(batch), hw, cin, cm, cout, proj)
+                    for hw, cin, cm, cout, proj, c in K3_SHAPES)
+        tf = flops / (res["ms"] * 1e-3) / 1e12
+        print(f"K3 13 blocks at batch {batch}: kernel {res['ms']:.4f} ms "
               f"({tf:.1f} TFLOP/s, {100 * tf / H100_BF16_TFLOPS:.1f} % of "
-              f"{H100_BF16_TFLOPS:.0f} dense bf16), plain {plain:.4f} ms",
+              f"{H100_BF16_TFLOPS:.0f} dense bf16), unfused bf16 cuDNN "
+              f"sequence {res['unfused_ms']:.4f} ms (reference only)",
               flush=True)
-        ms_fwd += count * ms
-        plain_fwd += count * plain
-        ops = k3_flops(K3_BATCH, hw, cin, cm, cout, proj)
-        nbytes = 2 * (x.numel() + K3_BATCH * hw * hw * cout
-                      + sum(t.numel() for t in (wts.w1, wts.w3, wts.w2,
-                                                wts.wp) if t is not None))
-        t_ops = ops / (H100_BF16_TFLOPS * 1e12) * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        bound_fwd += count * max(t_ops, t_bytes)
-        ops_fwd += count * t_ops
-        bytes_fwd += count * t_bytes
+    res = times[str(K3_BATCH)]
     print(f"K3 13 blocks of one forward, batch {K3_BATCH}: kernel "
-          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, bound {bound_fwd:.4f} "
-          f"ms", flush=True)
-    return {"err": err_all, "ms": ms_fwd, "plain_ms": plain_fwd,
-            "bound_ms": bound_fwd,
+          f"{res['ms']:.4f} ms ({res['call_ms']:.4f} per call from Python), "
+          f"plain {plain_fwd:.4f} ms, bound {bound_fwd:.4f} ms", flush=True)
+    return {"err": err_all, "ms": res["ms"], "call_ms": res["call_ms"],
+            "plain_ms": plain_fwd, "bound_ms": bound_fwd,
             "bound_by": "operations" if ops_fwd >= bytes_fwd else "bytes",
             "library_ms": None}
 
@@ -764,39 +822,23 @@ def phase_a2(dev, smi: str) -> int:
 
 # Phase (h): K4 against its plain version at LResNet100E-II's stage shapes
 # (benchmarks/bench_qconv.py:57-59): (H, Cin, Cout), batch 64.
-K4_SHAPES = ((56, 64, 64), (28, 128, 128), (14, 256, 256), (7, 512, 512),
-             (14, 512, 512))
-K4_BATCH = 64
 K4_F32_LIMIT = 1e-5     # relative, tests/test_qconv.py:27's bound
 H100_INT8_TOPS = 1979.0
-
-
-def _k4_case(hw, cin, cout, g, dev):
-    from alink_tpu_torch.ops import qconv
-
-    x = torch.randint(-127, 128, (K4_BATCH, hw, hw, cin), generator=g,
-                      dtype=torch.int8)
-    w = torch.randint(-20, 21, (3, 3, cin, cout), generator=g,
-                      dtype=torch.int8)
-    vec = lambda lo, hi: (torch.rand(cout, generator=g) * (hi - lo)  # noqa
-                          + lo).to(dev)
-    scale, bias = vec(0.001, 0.01), vec(-1.0, 1.0)
-    alpha, qs = vec(0.1, 0.4), vec(0.5, 2.0)
-    lo = qconv.flat_layout(K4_BATCH, hw, hw)
-    return x.to(dev), w.to(dev), scale, bias, alpha, qs, lo
 
 
 def phase_k4(dev, g, smi: str):
     """(h): K4's op path (``conv3x3_s1_int8`` at the five shapes and a
     conv -> prelu_quant -> add_lead -> conv chain at 14x14x256) with its
-    counter zeroed just before and read just after, then the kernel
-    against its plain version on the same operands."""
+    counter zeroed just before and read just after, then the kernel on
+    packed operands against its plain version on the same operands."""
     import torch.nn.functional as F
 
     from alink_tpu_torch.ops import qconv
+    from alink_tpu_torch.tools.bench_kernels import (K4_BATCH, K4_SHAPES,
+                                                     k4_case)
 
     k4 = qconv.conv3x3_s1_int8_flat_kernel
-    cases = [_k4_case(*s, g, dev) for s in K4_SHAPES]
+    cases = [k4_case(*s, g, dev) for s in K4_SHAPES]
     k4.launches = 0
     for x, w, scale, bias, *_ in cases:
         out = qconv.conv3x3_s1_int8(x, w, scale, bias)
@@ -829,11 +871,12 @@ def phase_k4(dev, g, smi: str):
     for (hw, cin, cout), (x, w, scale, bias, alpha, qs, lo) in zip(K4_SHAPES,
                                                                  cases):
         name = f"{hw}x{hw} {cin}->{cout}"
-        ops = qconv._operands(qconv.nhwc_to_flat(x, lo), w, scale, bias,
-                              alpha, qs)
+        xf = qconv.nhwc_to_flat(x, lo)
+        packed = qconv.pack_conv(w, scale, bias, alpha, qs)
+        ops = qconv._operands(xf, w, scale, bias, alpha, qs)
         for ep, dt in (("affine", torch.bfloat16), ("affine", torch.float32),
                        ("prelu_quant", torch.bfloat16)):
-            got = k4(ops, lo, ep, dt)
+            got = k4(xf, packed, lo, ep, dt)
             want = qconv.conv3x3_s1_int8_flat_reference(ops, lo, ep, dt)
             torch.cuda.synchronize()
             e = maxdiff(got, want)
@@ -847,33 +890,39 @@ def phase_k4(dev, g, smi: str):
                   f"K4 {name}: bad output")
             check(e <= limit and nz > 0.2, f"K4 {name} {ep}: max|diff| {e}")
             err_all = max(err_all, e)
-        ms = cuda_ms(lambda: k4(ops, lo, "affine", torch.bfloat16))
+        ms, call = kernel_ms(lambda: k4(xf, packed, lo), k4)
+        op = cuda_ms(lambda: qconv.conv3x3_s1_int8(x, w, scale, bias))
         plain = cuda_ms(lambda: qconv.conv3x3_s1_int8_flat_reference(
             ops, lo, "affine", torch.bfloat16), iters=5)
         xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        lib = cuda_ms(lambda: F.conv2d(xc, wc, padding=1))
-        useful = 2.0 * K4_BATCH * hw * hw * 9 * cin * cout
-        moved = (ops.x.numel() + ops.w.numel()
-                 + lo.n * lo.r * ops.w.shape[2] * 2)
+        lib = graph_ms(lambda: F.conv2d(xc, wc, padding=1))
+        # The unpadded problem: pixel rows only, Cin and Cout as they are.
+        npix = K4_BATCH * hw * hw
+        useful = 2.0 * npix * 9 * cin * cout
+        moved = npix * cin + 9 * cin * cout + npix * cout * 2
         t_ops = useful / (H100_INT8_TOPS * 1e12) * 1e3
         t_bytes = moved / H100_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
-        print(f"K4 {name} batch {K4_BATCH}, affine bf16: kernel {ms:.4f} ms "
-              f"({useful / ms / 1e9:.1f} useful TOPS), plain {plain:.4f} ms, "
-              f"bf16 F.conv2d {lib:.4f} ms, bound {bound:.4f} ms "
+        print(f"K4 {name} batch {K4_BATCH}, affine bf16: launch {ms:.4f} ms "
+              f"({useful / ms / 1e9:.1f} useful TOPS; {call:.4f} per call "
+              f"from Python), op path {op:.4f} ms, "
+              f"plain {plain:.4f} ms, bf16 F.conv2d {lib:.4f} ms "
+              f"({ms / lib:.2f}x), bound {bound:.4f} ms "
               f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
               f"{100 * bound / ms:.1f} % of it) on {smi}", flush=True)
-        rows.append((ms, plain, lib, bound, t_ops >= t_bytes))
-    ms, plain, lib = (sum(r[i] for r in rows) for i in range(3))
-    bound = sum(r[3] for r in rows)
-    by = "operations" if sum(r[4] for r in rows) * 2 > len(rows) else "bytes"
-    print(f"K4 five shapes summed: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bf16 F.conv2d {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
-    return launches, {"err": err_all, "ms": ms, "plain_ms": plain,
-                      "bound_ms": bound, "bound_by": by, "library_ms": lib}
+        rows.append((ms, plain, lib, op, bound, call, t_ops >= t_bytes))
+    ms, plain, lib, op, bound, call = (sum(r[i] for r in rows)
+                                       for i in range(6))
+    by = "operations" if sum(r[6] for r in rows) * 2 > len(rows) else "bytes"
+    print(f"K4 five shapes summed: launch {ms:.4f} ms ({call:.4f} per call "
+          f"from Python), op path {op:.4f} ms, plain {plain:.4f} ms, bf16 "
+          f"F.conv2d {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+    return launches, {"err": err_all, "ms": ms, "call_ms": call,
+                      "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                      "library_ms": lib}
 
 
 def rng_images(n: int) -> np.ndarray:
@@ -1041,7 +1090,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],
-         "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+         "max_abs_err": v["err"], "ms": v["ms"], "call_ms": v["call_ms"],
+         "plain_ms": v["plain_ms"],
          "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
          "library_ms": v["library_ms"]}
         for name, v in numbers.items()]}), flush=True)

@@ -168,9 +168,42 @@ def test_wrappers_check_their_inputs():
         tq.conv3x3_s1_int8_flat(xf[:, :5], *_t(wt, scale, bias), lo)
     ops = tq._operands(xf, *_t(wt, scale, bias), None, None)
     with pytest.raises(ValueError, match="CUDA"):
-        tq.conv3x3_s1_int8_flat_kernel(ops, lo)
+        tq.conv3x3_s1_int8_flat_kernel(xf, tq.pack_conv(*_t(wt, scale, bias)),
+                                       lo)
     assert tq.conv3x3_s1_int8_flat_kernel.launches == 0
     # A shorter input reads as zero rows past its end, as in JAX.
     a = tq.conv3x3_s1_int8_flat_reference(ops._replace(x=ops.x[:lo.rows]),
                                           lo)
     assert a.shape == (lo.n * lo.r, 128)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 64, 64), (5, 7, 64, 20)])
+@pytest.mark.parametrize("epilogue", ["affine", "prelu_quant"])
+def test_64_channel_input_matches_padded_call_and_jax(shape, epilogue):
+    """A 64-channel flat input (the kernel's K = 64, no padding) gives the
+    same rows as the same input padded to 128 channels, and the JAX
+    function's (in interpret mode) on the padded layout."""
+    x, wt, scale, bias = _case(shape, seed=5)
+    cout = shape[3]
+    rng = np.random.default_rng(6)
+    alpha = rng.uniform(0.1, 0.5, cout).astype(np.float32)
+    qs = rng.uniform(5.0, 15.0, cout).astype(np.float32)
+    n, h, w = x.shape[:3]
+    lo, jlo = tq.flat_layout(n, h, w), jq.flat_layout(n, h, w)
+    xf = tq.nhwc_to_flat(torch.from_numpy(x), lo)
+    assert xf.shape[1] == 64
+    kw = dict(alpha=torch.from_numpy(alpha), quant_scale=torch.from_numpy(qs),
+              epilogue=epilogue, out_dtype=torch.float32)
+    got = tq.conv3x3_s1_int8_flat(xf, *_t(wt, scale, bias), lo, **kw)
+    padded = tq.conv3x3_s1_int8_flat(
+        torch.nn.functional.pad(xf, (0, 64)), *_t(wt, scale, bias), lo, **kw)
+    assert torch.equal(got, padded)
+    want = np.asarray(jq.conv3x3_s1_int8_flat(
+        jq.nhwc_to_flat(jnp.asarray(x), jlo), *_j(wt, scale, bias), jlo,
+        alpha=jnp.asarray(alpha), quant_scale=jnp.asarray(qs),
+        epilogue=epilogue, out_dtype=jnp.float32, interpret=True))
+    rows = lo.n * lo.r
+    if epilogue == "prelu_quant":
+        np.testing.assert_array_equal(got.numpy(), want[:rows])
+    else:
+        _close(got, want[:rows])

@@ -3,15 +3,22 @@
 // Replaces the TPU kernel alink_tpu/ops/image.py:_warp_kernel (reached
 // through affine_warp_batch_pallas).  Output pixel (x, y) of image i samples
 // the source at Ainv_i . ((x, y) - b_i) with four bilinear taps and a zero
-// or nearest (edge-clamp) border.  Ainv and b are computed by the wrapper in
-// f32 with the closed-form 2x2 inverse and passed as six floats per image.
+// or nearest (edge-clamp) border, where M_i = [A_i | b_i] is the forward
+// affine the caller passes, (n, 2, 3) f32.
 //
 // Bound: memory.  Each output pixel reads at most four source pixels and
 // writes one; a 64-image 160x160x3 -> 112x112x3 alignment batch moves about
-// 20 MB.  The TPU kernel's banded, lane-windowed matrix form exists only
+// 29 MB.  The TPU kernel's banded, lane-windowed matrix form exists only
 // because gathers are slow there; here the design is the direct one:
-//   - one thread per output pixel, looping over the c channels, so the
-//     coordinate transform and the tap weights are computed once per pixel;
+//   - the inverse is derived in the kernel, once per block, from the
+//     forward affine, rounded op by op as ops/image.py:_inv2x2 and
+//     _warp_params round it on the card (det = a*d - b*c as two rounded
+//     products and a rounded difference, then an IEEE division for each
+//     entry), so the wrapper launches nothing but this kernel;
+//   - a block owns a tile of whole output rows of one image (about 1,000
+//     pixels): its source footprint is a band of a few source rows that
+//     stays in L1, and neighbouring threads take neighbouring output
+//     pixels, so a warp's taps fall on a few cache lines;
 //   - coordinates are f32 elementwise arithmetic, never a matrix product
 //     (pixel coordinates must not pass through a reduced-precision
 //     multiply).  Multiplies and adds are rounded one by one (__fmul_rn,
@@ -21,14 +28,21 @@
 //   - the taps and the blend are f32 with the same roundings; integer
 //     outputs round half to even and saturate, like _cast_like;
 //   - a NaN sample coordinate (singular transform) gives a NaN pixel (0 in
-//     uint8), an infinite one lies outside the image, as in the JAX warp.
-// Neighbouring threads take neighbouring output pixels, so stores coalesce
-// and the taps of a warp hit a few source rows that stay in L1/L2.
+//     uint8), an infinite one lies outside the image, as in the JAX warp;
+//   - the tile's pixels are gathered into shared memory and leave in
+//     16-byte stores: its rows are one contiguous run of the output, so
+//     the 12-byte (f32) and 3-byte (uint8) pixels need no scattered store.
+// 32-bit index arithmetic throughout: the entry point refuses an image or
+// output of 2^31 elements or more.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTilePixels = 1024;     // output pixels a block aims to own
+constexpr int kMaxStage = 32 * 1024;  // shared-memory bytes of one tile
 
 template <typename T>
 __device__ __forceinline__ T to_out(float v);
@@ -43,22 +57,16 @@ __device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
   return static_cast<uint8_t>(v);
 }
 
-template <typename T>
-__global__ void affine_warp_kernel(const T* __restrict__ img,
-                                   const float* __restrict__ xform,
-                                   T* __restrict__ out, int n, int h, int w,
-                                   int c, int oh, int ow, int border_nearest,
-                                   int interp_nearest) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long total = static_cast<long long>(n) * oh * ow;
-  if (idx >= total) return;
-  const int x = static_cast<int>(idx % ow);
-  const long long t = idx / ow;
-  const int y = static_cast<int>(t % oh);
-  const int i = static_cast<int>(t / oh);
-
-  const float* s = xform + 6 * i;  // a00 a01 a10 a11 bx by
+// Output pixel (x, y) of an image into c channels at dst, from the inverse
+// map s = [a00 a01 a10 a11 bx by].  C is the channel count when known at
+// compile time (3), else 0 and c holds it.
+template <typename T, int C>
+__device__ __forceinline__ void warp_pixel(const T* __restrict__ base,
+                                           const float* s, int x, int y,
+                                           int h, int w, int c,
+                                           int border_nearest,
+                                           int interp_nearest, T* dst) {
+  const int nc = C > 0 ? C : c;
   const float rx = __fsub_rn(static_cast<float>(x), s[4]);
   const float ry = __fsub_rn(static_cast<float>(y), s[5]);
   float X = __fadd_rn(__fmul_rn(s[0], rx), __fmul_rn(s[1], ry));
@@ -103,13 +111,12 @@ __global__ void affine_warp_kernel(const T* __restrict__ img,
   const int cy0 = min(max(y0, 0), h - 1);
   const int cy1 = min(max(y1, 0), h - 1);
 
-  const T* base = img + static_cast<long long>(i) * h * w * c;
-  const T* p00 = base + (static_cast<long long>(cy0) * w + cx0) * c;
-  const T* p01 = base + (static_cast<long long>(cy0) * w + cx1) * c;
-  const T* p10 = base + (static_cast<long long>(cy1) * w + cx0) * c;
-  const T* p11 = base + (static_cast<long long>(cy1) * w + cx1) * c;
-  T* dst = out + idx * c;
-  for (int ch = 0; ch < c; ++ch) {
+  const T* p00 = base + (cy0 * w + cx0) * nc;
+  const T* p01 = base + (cy0 * w + cx1) * nc;
+  const T* p10 = base + (cy1 * w + cx0) * nc;
+  const T* p11 = base + (cy1 * w + cx1) * nc;
+#pragma unroll
+  for (int ch = 0; ch < nc; ++ch) {
     const float v00 = (vy0 && vx0) ? static_cast<float>(p00[ch]) : 0.0f;
     const float v01 = (vy0 && vx1) ? static_cast<float>(p01[ch]) : 0.0f;
     const float v10 = (vy1 && vx0) ? static_cast<float>(p10[ch]) : 0.0f;
@@ -121,30 +128,117 @@ __global__ void affine_warp_kernel(const T* __restrict__ img,
   }
 }
 
+// Block (image i, tile t) writes output rows [t * rows, t * rows + rows) of
+// image i.  With `staged`, the tile is gathered in shared memory and stored
+// in 16-byte runs; otherwise (a row wider than the stage, or an unaligned
+// run) each pixel is stored where it is computed.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+affine_warp_kernel(const T* __restrict__ img, const float* __restrict__ M,
+                   T* __restrict__ out, int h, int w, int c, int oh, int ow,
+                   int rows, int staged, int border_nearest,
+                   int interp_nearest) {
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  __shared__ float s[6];
+  const int i = blockIdx.x;
+  const int y0 = blockIdx.y * rows;
+  const int nrows = min(rows, oh - y0);
+  const int nc = C > 0 ? C : c;
+  if (threadIdx.x == 0) {
+    // The inverse of [a b; c d], rounded as _inv2x2 rounds it.
+    const float* m = M + 6 * i;
+    const float a = m[0], b = m[1], cc = m[3], d = m[4];
+    const float det = __fsub_rn(__fmul_rn(a, d), __fmul_rn(b, cc));
+    s[0] = __fdiv_rn(d, det);
+    s[1] = __fdiv_rn(-b, det);
+    s[2] = __fdiv_rn(-cc, det);
+    s[3] = __fdiv_rn(a, det);
+    s[4] = m[2];
+    s[5] = m[5];
+  }
+  __syncthreads();
+  const float inv[6] = {s[0], s[1], s[2], s[3], s[4], s[5]};
+  const T* base = img + static_cast<long long>(i) * h * w * nc;
+  const int npix = nrows * ow;
+  const long long first = (static_cast<long long>(i) * oh + y0) * ow * nc;
+  T* stage = reinterpret_cast<T*>(stage_raw);
+  for (int p = threadIdx.x; p < npix; p += kThreads) {
+    const int yy = p / ow;
+    const int x = p - yy * ow;
+    T* dst = staged ? stage + p * nc : out + first + p * nc;
+    warp_pixel<T, C>(base, inv, x, y0 + yy, h, w, nc, border_nearest,
+                     interp_nearest, dst);
+  }
+  if (!staged) return;
+  __syncthreads();
+  // The tile is out[first, first + npix * nc): 16-byte runs, then the
+  // last few elements one by one.
+  const int bytes = npix * nc * static_cast<int>(sizeof(T));
+  const int nvec = bytes / 16;
+  uint4* dv = reinterpret_cast<uint4*>(out + first);
+  const uint4* sv = reinterpret_cast<const uint4*>(stage);
+  for (int v = threadIdx.x; v < nvec; v += kThreads) dv[v] = sv[v];
+  for (int e = nvec * 16 / static_cast<int>(sizeof(T)) + threadIdx.x;
+       e < npix * nc; e += kThreads) {
+    out[first + e] = stage[e];
+  }
+}
+
+template <typename T>
+int launch(const void* img, const float* M, void* out, int n, int h, int w,
+           int c, int oh, int ow, int border_nearest, int interp_nearest,
+           cudaStream_t st) {
+  const int row_bytes = ow * c * static_cast<int>(sizeof(T));
+  int rows = kTilePixels / ow;
+  rows = max(1, min(oh, min(rows, kMaxStage / max(row_bytes, 1))));
+  // Staged tiles start on 16-byte boundaries when a tile's bytes (and the
+  // output's base, from the allocator) are multiples of 16.
+  const bool staged = row_bytes <= kMaxStage &&
+                      (static_cast<long long>(rows) * row_bytes) % 16 == 0 &&
+                      (static_cast<long long>(oh) * row_bytes) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const size_t smem = staged ? static_cast<size_t>(rows) * row_bytes : 0;
+  const dim3 grid(n, (oh + rows - 1) / rows);
+  const T* src = static_cast<const T*>(img);
+  T* dst = static_cast<T*>(out);
+  if (c == 3) {
+    affine_warp_kernel<T, 3><<<grid, kThreads, smem, st>>>(
+        src, M, dst, h, w, c, oh, ow, rows, staged, border_nearest,
+        interp_nearest);
+  } else {
+    affine_warp_kernel<T, 0><<<grid, kThreads, smem, st>>>(
+        src, M, dst, h, w, c, oh, ow, rows, staged, border_nearest,
+        interp_nearest);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// is_u8: 0 = float32 pixels, 1 = uint8 pixels (output in the input type).
-// Returns cudaGetLastError() after the launch.
-extern "C" int alink_affine_warp(const void* img, int is_u8, const void* xform,
+// img (n, h, w, c) and out (n, oh, ow, c): float32 (is_u8 0) or uint8
+// (is_u8 1); M (n, 2, 3) f32 forward affines.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for sizes past 32-bit
+// indexing.
+extern "C" int alink_affine_warp(const void* img, int is_u8, const void* M,
                                  void* out, int n, int h, int w, int c, int oh,
                                  int ow, int border_nearest,
                                  int interp_nearest, void* stream) {
-  const long long total = static_cast<long long>(n) * oh * ow;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(xform);
-  if (is_u8) {
-    affine_warp_kernel<uint8_t><<<blocks, threads, 0, st>>>(
-        static_cast<const uint8_t*>(img), xf, static_cast<uint8_t*>(out), n,
-        h, w, c, oh, ow, border_nearest, interp_nearest);
-  } else {
-    affine_warp_kernel<float><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(img), xf, static_cast<float*>(out), n, h, w,
-        c, oh, ow, border_nearest, interp_nearest);
+  if (n < 0 || h <= 0 || w <= 0 || c <= 0 || oh < 0 || ow < 0 ||
+      static_cast<long long>(h) * w * c >= (1LL << 31) ||
+      static_cast<long long>(oh) * ow * c >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0 || oh == 0 || ow == 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  const float* mf = static_cast<const float*>(M);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_u8) {
+    return launch<uint8_t>(img, mf, out, n, h, w, c, oh, ow, border_nearest,
+                           interp_nearest, st);
+  }
+  return launch<float>(img, mf, out, n, h, w, c, oh, ow, border_nearest,
+                       interp_nearest, st);
 }
 
 extern "C" const char* alink_error_string(int status) {

@@ -36,6 +36,15 @@ class SiameseHead(nn.Module):
             _make_dense(a, b, generator, device) for a, b in zip(dims, dims[1:]))
         self.out = _make_dense(dims[-1], 1 if head == "sigmoid" else 2,
                                generator, device)
+        # The fused scorer's packed copy of the weights
+        # (``ops.pairwise.packed_head``): keyed on each parameter's identity
+        # and version, and dropped when the module moves or loads a state.
+        self._packed = None
+        self.register_load_state_dict_post_hook(_drop_packed)
+
+    def _apply(self, fn, recurse=True):
+        self._packed = None
+        return super()._apply(fn, recurse)
 
     def logits(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         """Two-class logits; a sigmoid head exports ``[0, logit]`` so that
@@ -50,3 +59,7 @@ class SiameseHead(nn.Module):
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         return torch.softmax(self.logits(left, right), dim=-1)
+
+
+def _drop_packed(module: SiameseHead, incompatible_keys) -> None:
+    module._packed = None

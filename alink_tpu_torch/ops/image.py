@@ -131,6 +131,9 @@ def affine_warp_batch_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/affine_warp.cu`` on CUDA tensors (f32 or uint8 NHWC).
 
+    The kernel inverts the forward affines itself (rounded as
+    ``_warp_params`` rounds them), so a call launches nothing else when
+    ``imgs`` is contiguous and ``Ms`` is contiguous f32 on its device.
     ``affine_warp_batch_kernel.launches`` counts the launches.
     """
     if not imgs.is_cuda:
@@ -144,14 +147,15 @@ def affine_warp_batch_kernel(
     if Ms.shape != (n, 2, 3):
         raise ValueError(f"Ms must be ({n}, 2, 3), got {tuple(Ms.shape)}")
     oh, ow = out_size
+    dev = imgs.device
     imgs = imgs.contiguous()
-    xform = _warp_params(Ms.to(imgs.device)).contiguous()
-    out = torch.empty((n, oh, ow, c), dtype=imgs.dtype, device=imgs.device)
+    Ms = Ms.to(dev, torch.float32).contiguous()
+    out = torch.empty((n, oh, ow, c), dtype=imgs.dtype, device=dev)
     lib = _build.load()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.alink_affine_warp(
-            imgs.data_ptr(), int(imgs.dtype == torch.uint8), xform.data_ptr(),
+            imgs.data_ptr(), int(imgs.dtype == torch.uint8), Ms.data_ptr(),
             out.data_ptr(), n, h, w, c, oh, ow, int(border == "nearest"),
             int(interp == "nearest"), stream)
     affine_warp_batch_kernel.launches += 1

@@ -8,7 +8,9 @@ rounded to bf16 and products accumulate in f32, as in the JAX package.
 
 - ``score_matrix_reference`` — plain PyTorch, blocked over rows.
 - ``score_matrix_kernel``    — the hand-written kernel ``csrc/pair_score.cu``
-  (replaces the TPU kernel ``alink_tpu/ops/pairwise.py:_fused_kernel``).
+  (replaces the TPU kernel ``alink_tpu/ops/pairwise.py:_fused_kernel``),
+  on the head's weights packed once (``pack_head``, cached on the head by
+  ``packed_head``) with a launch decided here (``launch_plan``).
 - ``score_matrix``           — dispatcher: the kernel for a two-hidden-layer
   head on CUDA tensors, the plain version otherwise.
 
@@ -16,6 +18,9 @@ The mesh-sharded grid (``score_matrix_sharded``) is not ported yet.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -79,12 +84,185 @@ def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
 
 
-# kDC, kMaxH1 and kMaxH2 of csrc/pair_score.cu: the D chunk that W1 is
-# padded to, and the widest padded hidden layers its register and
-# shared-memory accumulators hold.
-_D_CHUNK = 64
-_MAX_H1 = 512
-_MAX_H2 = 256
+# Tiling of csrc/pair_score.cu.  A tile is 8 rows x 16 columns of pairs
+# (128: one m64 product per consumer warpgroup); D runs in slabs of 64
+# (4 k16 products), H1 in passes of ``np1`` columns, H2 padded to ``h2p``.
+# Within each 16-deep product, column kk of the kernel's A operand holds
+# feature _K_PERM[kk] of the slice: thread t of a quad reads features
+# 4t..4t+3 in one 16-byte load, which the mma fragment layout places at
+# columns 2t, 2t+1, 2t+8, 2t+9.  W1's rows are packed in that order.
+_TI, _TJ, _KS = 8, 16, 64
+_K_PERM = [4 * ((kk & 7) >> 1) + 2 * (kk >> 3) + (kk & 1) for kk in range(16)]
+_H2_WIDTHS = (32, 64, 128, 256)
+_FEAT_BYTES = (_TI + _TJ) * _KS * 4     # one slab of both feature tiles
+_MAX_STAGES = 8
+_MAX_SMEM = 232448
+_SCORE_BYTES = _TI * _TJ * 4
+_BAR_BYTES = 2 * 8 * _MAX_STAGES
+_GROUP = 8                              # row tiles per band of the walk
+_SMS = 132                              # streaming multiprocessors, H100 SXM
+
+
+def _rup(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def head_tiling(h1: int, h2: int) -> tuple[int, int, int]:
+    """(np1, h2p, h1p): the H1 pass width, the padded H2 and the padded H1
+    the kernel runs a head at.  A consumer warpgroup holds np1 / 2 + h2p / 2
+    f32 accumulators a thread (at most 160): passes of 256 columns where H2
+    pads to 64 or less, 128 at 128, 64 at 256."""
+    if not 0 < h2 <= _H2_WIDTHS[-1] or h1 <= 0:
+        raise ValueError(f"fused scorer takes 0 < H2 <= {_H2_WIDTHS[-1]}; "
+                         f"got head widths ({h1}, {h2})")
+    h2p = next(c for c in _H2_WIDTHS if c >= h2)
+    np1 = 64 if h2p == 256 else 128 if (h2p == 128 or h1 <= 128) else 256
+    return np1, h2p, _rup(h1, np1)
+
+
+class HeadPacked(NamedTuple):
+    """A two-hidden-layer head in the order ``csrc/pair_score.cu`` stages
+    it (``pack_head``), zero-padded: for each H1 pass and D slab, W1's 4
+    k16 slices as wgmma's K-major core matrices (8 columns x 8 rows of K,
+    16 bytes a column), rows in ``_K_PERM`` order; for each pass, W2's rows
+    of that pass the same way; biases f32, the output layer f32 rounded to
+    bf16 (its products run on the CUDA cores).
+
+    w1: (passes, D / 64, 4, np1 / 8, 2, 8, 8) bf16    b1: (h1p,) f32
+    w2: (passes, np1 / 16, h2p / 8, 2, 8, 8) bf16     b2: (h2p,) f32
+    wo: (h2p, 2) f32                                   bo: (2,) f32
+    """
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    wo: torch.Tensor
+    bo: torch.Tensor
+    d: int
+    h1: int
+    h2: int
+    np1: int
+    h2p: int
+
+
+@torch.no_grad()
+def pack_head(head, device=None) -> HeadPacked:
+    """The weights of a two-hidden-layer ``SiameseHead`` in the kernel's
+    layout (``HeadPacked``) on ``device``."""
+    layers = head_weights(head)
+    if len(layers) != 3:
+        raise ValueError("the fused scorer takes 2 hidden layers + output")
+    (w1, b1), (w2, b2), (wo, bo) = ((w.detach().float(), b.detach().float())
+                                    for w, b in layers)
+    d, h1 = w1.shape
+    h2 = w2.shape[1]
+    np1, h2p, h1p = head_tiling(h1, h2)
+    dp, passes = _rup(d, _KS), h1p // np1
+    t = _pad_to(w1, dp, h1p).reshape(dp // 16, 16, h1p)[:, _K_PERM]
+    t = t.reshape(dp // _KS, 4, 2, 8, passes, np1 // 8, 8)
+    w1p = t.permute(4, 0, 1, 5, 2, 6, 3)
+    t = _pad_to(w2, h1p, h2p).reshape(passes, np1 // 16, 2, 8, h2p // 8, 8)
+    w2p = t.permute(0, 1, 4, 2, 5, 3)
+    return HeadPacked(
+        w1p.to(device, torch.bfloat16).contiguous(),
+        F.pad(b1, (0, h1p - h1)).to(device).contiguous(),
+        w2p.to(device, torch.bfloat16).contiguous(),
+        F.pad(b2, (0, h2p - h2)).to(device).contiguous(),
+        _bf16(_pad_to(wo, h2p, 2)).to(device).contiguous(),
+        bo.to(device).contiguous(), d, h1, h2, np1, h2p)
+
+
+def unpack_head(p: HeadPacked) -> tuple[tuple[torch.Tensor, torch.Tensor],
+                                        ...]:
+    """``pack_head``'s inverse: ((W1, b1), (W2, b2), (Wo, bo)) f32 at the
+    head's widths (the matrices as the kernel reads them, bf16-rounded)."""
+    passes, nslab = p.w1.shape[:2]
+    h1p, dp = passes * p.np1, nslab * _KS
+    t = p.w1.float().permute(1, 2, 4, 6, 0, 3, 5).reshape(dp // 16, 16, h1p)
+    w1 = torch.empty_like(t)
+    w1[:, _K_PERM] = t
+    w2 = p.w2.float().permute(0, 1, 3, 5, 2, 4).reshape(h1p, p.h2p)
+    return ((w1.reshape(dp, h1p)[:p.d, :p.h1], p.b1[:p.h1]),
+            (w2[:p.h1, :p.h2], p.b2[:p.h2]), (p.wo[:p.h2], p.bo))
+
+
+def packed_head(head, device) -> HeadPacked:
+    """``pack_head(head, device)``, cached on the head.  The head is trained
+    in place (an optimizer step, ``load_state_dict``), so the cache is keyed
+    on each parameter's identity and in-place version counter; moving the
+    module (``SiameseHead._apply``) drops it."""
+    device = torch.device(device)
+    params = [p for lin in (*head.hidden, head.out)
+              for p in (lin.weight, lin.bias)]
+    key = [(p, p._version) for p in params]
+    cached = getattr(head, "_packed", None)
+    if (cached is None or cached[0] != device or len(cached[1]) != len(key)
+            or any(a is not b or va != vb
+                   for (a, va), (b, vb) in zip(cached[1], key))):
+        cached = (device, key, pack_head(head, device))
+        head._packed = cached
+    return cached[2]
+
+
+class PairPlan(NamedTuple):
+    """How ``csrc/pair_score.cu`` runs one launch (``launch_plan``)."""
+
+    np1: int                # H1 pass width (the layer-1 product's N)
+    h2p: int                # padded H2 (the layer-2 product's N)
+    h1p: int
+    passes: int
+    dp: int                 # D padded to the 64-deep slab
+    nslab: int
+    tiles_i: int            # 8-row tiles
+    tiles_j: int            # 16-column tiles
+    tiles: int
+    group: int              # row tiles per band of the walk (L2 reuse)
+    grid: int               # persistent blocks; block b walks b, b + grid, ...
+    stages: int             # ring entries
+    stage_bytes: int
+    smem: int               # dynamic shared memory per block (bytes)
+
+
+def stash_bytes(np1: int, h2p: int) -> int:
+    """Shared memory that holds the layer-2 accumulator between 256-wide
+    passes (f32, one slot per consumer thread and register), so that it
+    leaves the registers to layer 1 there."""
+    return 256 * (h2p // 2) * 4 if np1 == 256 else 0
+
+
+def stage_bytes(np1: int, h2p: int) -> int:
+    """One ring entry: a D slab of both feature tiles and of W1's pass, or
+    one pass of W2, on a 1024-byte boundary (the features' 128-byte
+    swizzle)."""
+    return _rup(max(_FEAT_BYTES + np1 * _KS * 2, np1 * h2p * 2), 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, m: int, d: int, h1: int, h2: int,
+                sms: int = _SMS) -> PairPlan:
+    """The kernel's tiling, ring and grid for an (n, d) x (m, d) grid under
+    a head of widths (h1, h2), on a card of ``sms`` SMs."""
+    np1, h2p, h1p = head_tiling(h1, h2)
+    dp = _rup(max(d, 1), _KS)
+    ti, tj = -(-n // _TI), -(-m // _TJ)
+    sb = stage_bytes(np1, h2p)
+    fixed = _SCORE_BYTES + _BAR_BYTES + stash_bytes(np1, h2p)
+    stages = min(_MAX_STAGES, (_MAX_SMEM - fixed) // sb)
+    return PairPlan(np1, h2p, h1p, h1p // np1, dp, dp // _KS, ti, tj, ti * tj,
+                    _GROUP, max(1, min(ti * tj, sms)), stages, sb,
+                    stages * sb + fixed)
+
+
+def tile_coords(plan: PairPlan, t: int) -> tuple[int, int]:
+    """(row tile, column tile) of walk position t: bands of ``group`` row
+    tiles, column by column within a band, so the blocks in flight share
+    a few row and column feature tiles (the kernel's ``tile_coords``)."""
+    per_band = plan.group * plan.tiles_j
+    band = t // per_band
+    rows = min(plan.group, plan.tiles_i - band * plan.group)
+    local = t - band * per_band
+    return band * plan.group + local % rows, local // rows
 
 
 @torch.no_grad()
@@ -92,45 +270,37 @@ def score_matrix_kernel(head, rows: torch.Tensor,
                         cols: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/pair_score.cu`` on CUDA tensors.
 
-    Takes two-hidden-layer heads with H1 <= 512 and H2 <= 256 (padded to
-    16); any D.  ``score_matrix_kernel.launches`` counts the launches.
+    Takes two-hidden-layer heads with H2 <= 256 and any H1 and D; the
+    head's weights are packed once and cached on it (``packed_head``).
+    ``score_matrix_kernel.launches`` counts the launches.
     """
     if not (rows.is_cuda and cols.is_cuda):
         raise ValueError("score_matrix_kernel needs CUDA tensors")
-    layers = head_weights(head)
-    if len(layers) != 3:
-        raise ValueError("the fused scorer takes 2 hidden layers + output")
-    (w1, b1), (w2, b2), (wo, bo) = layers
     n, d = rows.shape
     m = cols.shape[0]
-    if cols.shape[1] != d or w1.shape[0] != d:
-        raise ValueError(f"feature widths differ: rows {d}, cols "
-                         f"{cols.shape[1]}, head {w1.shape[0]}")
-    h1p = -(-w1.shape[1] // 16) * 16
-    h2p = -(-w2.shape[1] // 16) * 16
-    if h1p > _MAX_H1 or h2p > _MAX_H2:
-        raise ValueError(f"head widths ({w1.shape[1]}, {w2.shape[1]}) exceed "
-                         f"the fused kernel's limit ({_MAX_H1}, {_MAX_H2}): "
-                         "its hidden accumulator lives in registers and "
-                         "shared memory")
-    dp = -(-d // _D_CHUNK) * _D_CHUNK
     dev = rows.device
-    w1p = _pad_to(w1.float(), dp, h1p).to(dev, torch.bfloat16).contiguous()
-    w2p = _pad_to(w2.float(), h1p, h2p).to(dev, torch.bfloat16).contiguous()
-    wop = _bf16(_pad_to(wo.float(), h2p, 2)).to(dev).contiguous()
-    b1p = F.pad(b1.float(), (0, h1p - b1.shape[0])).to(dev).contiguous()
-    b2p = F.pad(b2.float(), (0, h2p - b2.shape[0])).to(dev).contiguous()
-    bop = bo.float().to(dev).contiguous()
-    rows = rows.float().contiguous()
-    cols = cols.float().to(dev).contiguous()
+    pk = packed_head(head, dev)
+    if cols.shape[1] != d or pk.d != d:
+        raise ValueError(f"feature widths differ: rows {d}, cols "
+                         f"{cols.shape[1]}, head {pk.d}")
+    # The kernel reads the features by TMA: f32 rows of 16-byte multiples.
+    d4 = _rup(d, 4)
+    rows, cols = (t if t.dtype == torch.float32 and t.is_contiguous()
+                  and d4 == d and t.data_ptr() % 16 == 0 else
+                  F.pad(t.to(dev, torch.float32), (0, d4 - d)).contiguous()
+                  for t in (rows, cols))
+    plan = launch_plan(n, m, d4, pk.h1, pk.h2,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.alink_pair_score(
-            rows.data_ptr(), cols.data_ptr(), n, m, d, dp, w1p.data_ptr(),
-            b1p.data_ptr(), h1p, w2p.data_ptr(), b2p.data_ptr(), h2p,
-            wop.data_ptr(), bop.data_ptr(), out.data_ptr(), stream)
+            rows.data_ptr(), cols.data_ptr(), n, m, d4, pk.w1.data_ptr(),
+            pk.b1.data_ptr(), plan.h1p, pk.w2.data_ptr(), pk.b2.data_ptr(),
+            plan.h2p, pk.wo.data_ptr(), pk.bo.data_ptr(), out.data_ptr(),
+            plan.np1, plan.stages, plan.grid, plan.group, stream)
     score_matrix_kernel.launches += 1
     _build.check(status, "pair_score")
     return out

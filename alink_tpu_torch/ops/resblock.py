@@ -16,13 +16,16 @@ memory (``ops/qconv.py`` holds the chainable flat layout of K4).
   operands; TF32 is off package-wide, ``alink_tpu_torch/__init__.py``).
 - ``bottleneck_s1_kernel``    — the hand-written kernel ``csrc/bottleneck.cu``;
   it takes weights already in its layout (``kernel_weights``: the JAX-layout
-  matrices in bf16 plus, in the ``packed`` field, the copy the kernel reads,
+  matrices in bf16 plus, in the ``packed`` and ``vecs`` fields, the copy the
+  kernel reads, zero-padded to the widths it tiles, ``pad_bottleneck`` and
   ``pack_bottleneck``), so a model prepares them once and no launch copies
   a weight.
 - ``bottleneck_chain``        — dispatcher over a chain of blocks: the kernel
-  on CUDA tensors, the plain version on CPU tensors.  With grad enabled and
-  an input that requires it, each block runs as ``BottleneckS1``, a
-  ``torch.autograd.Function`` whose forward is that dispatch and whose
+  on CUDA tensors (the padded width carried from block to block and sliced
+  off once at the exit), the plain version on CPU tensors.  With grad
+  enabled and an input that requires it, each block runs as
+  ``BottleneckS1``, a ``torch.autograd.Function`` whose forward is that
+  dispatch (the kernel pads and slices per block there) and whose
   backward gives dx only (the teacher is frozen): it recomputes y1, y2 and
   the ReLU masks with differentiable PyTorch ops (f32, the 3x3 as a
   convolution) and back-propagates through them.  The TPU kernel has no
@@ -58,6 +61,21 @@ class BottleneckPacked(NamedTuple):
     wp: torch.Tensor | None
 
 
+class BottleneckVecs(NamedTuple):
+    """The folded-BN scales and shifts the kernel reads: f32, zero past the
+    real channels (``pad_bottleneck``), so every pad channel of y1, y2 and
+    the output is relu(0 * acc + 0) = 0."""
+
+    s1: torch.Tensor
+    b1: torch.Tensor
+    s2: torch.Tensor
+    b2: torch.Tensor
+    s3: torch.Tensor
+    b3: torch.Tensor
+    sp: torch.Tensor | None
+    bp: torch.Tensor | None
+
+
 class BottleneckWeights(NamedTuple):
     """One stride-1 bottleneck, BN folded to (scale, shift), JAX layouts.
 
@@ -66,8 +84,10 @@ class BottleneckWeights(NamedTuple):
     w2: (Cm, Cout)       s3/b3: (Cout,)
     wp: (Cin, Cout) projection shortcut (None = identity, Cin == Cout)
     sp/bp: (Cout,)
-    packed: the kernel's copy of the matrices (``kernel_weights`` sets it
-    where the kernel takes the shapes); the plain version ignores it.
+    packed, vecs: the kernel's copy of the matrices and of the scales and
+    shifts, zero-padded to the widths it tiles (``kernel_weights`` sets
+    them where the kernel takes the shapes); the plain version ignores
+    them.
     """
 
     w1: torch.Tensor
@@ -83,6 +103,11 @@ class BottleneckWeights(NamedTuple):
     sp: torch.Tensor | None = None
     bp: torch.Tensor | None = None
     packed: BottleneckPacked | None = None
+    vecs: BottleneckVecs | None = None
+
+
+# The weight tensors of a block (the fields before ``packed``).
+_TENSORS = BottleneckWeights._fields[:12]
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -122,28 +147,29 @@ def _block_plain(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
     return out.reshape(n, h, w, cout)
 
 
-# Limits of csrc/bottleneck.cu: x is staged in pairs of 32-channel slabs,
-# the weights in passes of 128 output columns (or one pass of 64), and y1
-# (102 rows) plus y2 (64 rows) of Cm bf16 channels and a ring of at least 2
-# 30 KB entries must fit the 227 KB of shared memory a block can have on an
-# H100, which bounds Cm at 512.  These are narrower than the TPU kernel's
-# (Cin % 32, Cm <= 576) and than this kernel's first design (Cin % 32, Cm
-# and Cout % 16, Cm <= 576): every stride-1 block of VGGFace-ResNet50
-# fits, and other widths raise on the card (ROADMAP.md keeps the item to
-# widen them again).
-_CIN_STEP = 64
+# Widths of csrc/bottleneck.cu: x is staged in pairs of 32-channel slabs
+# (Cin % 64), the weights in passes of 128 output columns or one pass of 64
+# (Cm and Cout 64 or a multiple of 128), and y1 (102 rows) plus y2 (64 rows)
+# of Cm bf16 channels and a ring of at least 2 30 KB entries must fit the
+# 227 KB of shared memory a block can have on an H100, which bounds Cm at
+# 512.  Other widths run zero-padded, as the TPU kernel pads every width
+# to 128 lanes: ``pad_bottleneck`` pads Cin, Cm and Cout to ``padded_width``
+# (Cin too, so that a block's padded output is the next block's padded
+# input and an identity shortcut pads Cin and Cout alike).  A Cm whose
+# padded width passes 512 (the TPU kernel takes 576) still raises: it needs
+# y1 kept only a pass wide, a redesign of the kernel (ROADMAP.md).
 _KS = 32
 _MAX_CM = 512
 
 
-def _width_ok(c: int) -> bool:
-    """A matrix width the kernel's passes tile: 64, or a multiple of 128."""
-    return c == 64 or (c > 0 and c % 128 == 0)
+def padded_width(c: int) -> int:
+    """The width the kernel runs a channel count at: 64, or the next
+    multiple of 128 (a multiple of 64 either way)."""
+    return 64 if c <= 64 else -(-c // 128) * 128
 
 
 def kernel_takes(cin: int, cm: int, cout: int) -> bool:
-    return (cin % _CIN_STEP == 0 and _width_ok(cm) and _width_ok(cout)
-            and cm <= _MAX_CM)
+    return min(cin, cm, cout) > 0 and padded_width(cm) <= _MAX_CM
 
 
 def _pass_width(n: int) -> int:
@@ -202,6 +228,30 @@ def unpack_bottleneck(p: BottleneckPacked) -> tuple[torch.Tensor, ...]:
 
 
 _MATRICES = ("w1", "w3", "w2", "wp")
+
+
+@torch.no_grad()
+def pad_bottleneck(wts: BottleneckWeights) -> BottleneckWeights:
+    """``wts`` zero-padded to the widths the kernel runs (``padded_width``
+    of Cin, Cm and Cout): zero rows and columns in the matrices, scale and
+    shift 0 on every pad channel.  Exact: a pad channel of y1, y2 and the
+    output is relu(0) = 0 and meets only zero weights downstream."""
+    cin, cm = wts.w1.shape
+    cout = wts.w2.shape[1]
+    ci, cmp_, co = padded_width(cin), padded_width(cm), padded_width(cout)
+
+    def mat(t, rows, cols):
+        return None if t is None else F.pad(
+            t, (0, cols - t.shape[-1], 0, rows - t.shape[-2]))
+
+    def vec(t, c):
+        return None if t is None else F.pad(t, (0, c - t.shape[0]))
+
+    return BottleneckWeights(
+        mat(wts.w1, ci, cmp_), vec(wts.s1, cmp_), vec(wts.b1, cmp_),
+        mat(wts.w3, cmp_, cmp_), vec(wts.s2, cmp_), vec(wts.b2, cmp_),
+        mat(wts.w2, cmp_, co), vec(wts.s3, co), vec(wts.b3, co),
+        mat(wts.wp, ci, co), vec(wts.sp, co), vec(wts.bp, co))
 
 
 # Tiling of csrc/bottleneck.cu: one 8 x 8 tile of output pixels per block;
@@ -294,23 +344,28 @@ def launch_plan(n: int, h: int, w: int, cin: int, cm: int, cout: int,
 @torch.no_grad()
 def kernel_weights(wts: BottleneckWeights, device=None) -> BottleneckWeights:
     """``wts`` in the layout ``bottleneck_s1_kernel`` reads: the weight
-    matrices bf16, scale and shift f32, all contiguous on ``device``, and
-    the packed copy the kernel stages (``pack_bottleneck``) where the
-    kernel takes the shapes.  The plain version gives the same result on
-    either form (it rounds the matrices to bf16 itself)."""
+    matrices bf16, scale and shift f32, all contiguous on ``device``, and,
+    where the kernel takes the shapes, its copy padded to the widths it
+    runs (``pad_bottleneck``): the matrices packed as it stages them
+    (``pack_bottleneck``) and the scales and shifts (``vecs``).  The plain
+    version gives the same result on either form (it rounds the matrices
+    to bf16 itself and reads only the unpadded fields)."""
     kw = BottleneckWeights(*(
         None if t is None else t.to(
             device, torch.bfloat16 if name in _MATRICES else torch.float32
         ).contiguous()
-        for name, t in zip(BottleneckWeights._fields[:-1], wts[:-1])))
+        for name, t in zip(_TENSORS, wts[:len(_TENSORS)])))
     cin, cm = kw.w1.shape
     if kernel_takes(cin, cm, kw.w2.shape[1]):
-        kw = kw._replace(packed=pack_bottleneck(kw))
+        pw = pad_bottleneck(kw)
+        kw = kw._replace(packed=pack_bottleneck(pw), vecs=BottleneckVecs(
+            *(None if t is None else t.contiguous() for t in
+              (pw.s1, pw.b1, pw.s2, pw.b2, pw.s3, pw.b3, pw.sp, pw.bp))))
     return kw
 
 
 def _check_kernel_layout(wts: BottleneckWeights, dev) -> None:
-    for name, t in zip(BottleneckWeights._fields[:-1], wts[:-1]):
+    for name, t in zip(_TENSORS, wts[:len(_TENSORS)]):
         want = torch.bfloat16 if name in _MATRICES else torch.float32
         if t is not None and (t.device != dev or t.dtype != want
                               or not t.is_contiguous()):
@@ -321,67 +376,92 @@ def _check_kernel_layout(wts: BottleneckWeights, dev) -> None:
 
 
 def _check_packed(wts: BottleneckWeights, dev) -> None:
-    p = wts.packed
-    if p is None:
+    p, v = wts.packed, wts.vecs
+    if p is None or v is None:
         raise ValueError("bottleneck_s1_kernel: no packed weights; pass "
                          f"weights from kernel_weights(wts, {dev})")
-    for name, t, m in zip(BottleneckPacked._fields, p,
-                          (wts.w1, wts.w3, wts.w2, wts.wp)):
-        if (t is None) != (m is None) or t is not None and (
+    cin, cm = wts.w1.shape
+    ci, cmp_, co = (padded_width(c) for c in (cin, cm, wts.w2.shape[1]))
+    proj = wts.wp is not None
+    sizes = {"w1": ci * cmp_, "w3": 9 * cmp_ * cmp_, "w2": cmp_ * co,
+             "wp": ci * co if proj else None}
+    for name, t in zip(BottleneckPacked._fields, p):
+        if (t is None) != (sizes[name] is None) or t is not None and (
                 t.device != dev or t.dtype != torch.bfloat16
-                or not t.is_contiguous() or t.numel() != m.numel()):
+                or not t.is_contiguous() or t.numel() != sizes[name]):
             raise ValueError(f"bottleneck_s1_kernel: packed {name} does not "
+                             f"match {name}; pass weights from "
+                             f"kernel_weights(wts, {dev})")
+    widths = (cmp_, cmp_, cmp_, cmp_, co, co, co if proj else None,
+              co if proj else None)
+    for name, t, c in zip(BottleneckVecs._fields, v, widths):
+        if (t is None) != (c is None) or t is not None and (
+                t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or t.shape != (c,)):
+            raise ValueError(f"bottleneck_s1_kernel: padded {name} does not "
                              f"match {name}; pass weights from "
                              f"kernel_weights(wts, {dev})")
 
 
 @torch.no_grad()
-def bottleneck_s1_kernel(x: torch.Tensor,
-                         wts: BottleneckWeights) -> torch.Tensor:
-    """Launch ``csrc/bottleneck.cu`` on a CUDA tensor (N, H, W, Cin), with
+def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
+                         keep_padded: bool = False) -> torch.Tensor:
+    """Launch ``csrc/bottleneck.cu`` on a CUDA tensor (N, H, W, C), with
     ``wts`` from ``kernel_weights`` on the same device.
 
-    Takes Cin % 64 == 0, Cm and Cout 64 or a multiple of 128, Cm <= 512.
+    Takes any Cin, Cm and Cout with ``padded_width(Cm) <= 512``, run at
+    their padded widths; C is Cin, or Cin's padded width with zeros in the
+    pad channels (a padded output of this function).  The output is
+    (N, H, W, Cout) bf16, or (N, H, W, padded Cout) with ``keep_padded``.
     ``bottleneck_s1_kernel.launches`` counts the launches.
     """
-    if not x.is_cuda:
-        raise ValueError("bottleneck_s1_kernel needs a CUDA tensor")
-    n, h, w, cin = x.shape
-    cin_w, cm = wts.w1.shape
+    n, h, w, c = x.shape
+    cin, cm = wts.w1.shape
     cout = wts.w2.shape[1]
-    if cin_w != cin or tuple(wts.w3.shape) != (3, 3, cm, cm) \
-            or wts.w2.shape[0] != cm:
-        raise ValueError(f"bottleneck weights do not chain: x has {cin} "
-                         f"channels, w1 {tuple(wts.w1.shape)}, w3 "
-                         f"{tuple(wts.w3.shape)}, w2 {tuple(wts.w2.shape)}")
+    if tuple(wts.w3.shape) != (3, 3, cm, cm) or wts.w2.shape[0] != cm:
+        raise ValueError(f"bottleneck weights do not chain: w1 "
+                         f"{tuple(wts.w1.shape)}, w3 {tuple(wts.w3.shape)}, "
+                         f"w2 {tuple(wts.w2.shape)}")
     if wts.wp is None and cin != cout:
         raise ValueError("identity shortcut requires Cin == Cout")
     if not kernel_takes(cin, cm, cout):
         raise ValueError(
-            f"bottleneck kernel takes Cin % {_CIN_STEP} == 0, Cm and Cout 64 "
-            f"or a multiple of 128 and Cm <= {_MAX_CM} (shared memory); got "
-            f"Cin {cin}, Cm {cm}, Cout {cout}")
+            f"bottleneck kernel: Cm {cm} pads to {padded_width(cm)} > "
+            f"{_MAX_CM}; y1 and y2 of a tile at that width overflow shared "
+            "memory (a Cm over 512 needs y1 kept only a pass wide: not done "
+            "yet, ROADMAP.md)")
+    if not x.is_cuda:
+        raise ValueError("bottleneck_s1_kernel needs a CUDA tensor")
+    cin_p, cm_p, cout_p = (padded_width(v) for v in (cin, cm, cout))
+    if c not in (cin, cin_p):
+        raise ValueError(f"bottleneck weights do not chain: x has {c} "
+                         f"channels, w1 {tuple(wts.w1.shape)}")
     dev = x.device
     _check_kernel_layout(wts, dev)
     _check_packed(wts, dev)
-    plan = launch_plan(n, h, w, cin, cm, cout, wts.wp is not None,
+    plan = launch_plan(n, h, w, cin_p, cm_p, cout_p, wts.wp is not None,
                        torch.cuda.get_device_properties(dev)
                        .multi_processor_count)
     x = x.to(torch.bfloat16).contiguous()
-    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=dev)
-    pk = wts.packed
+    if c < cin_p:
+        x = F.pad(x, (0, cin_p - c))
+    out = torch.empty((n, h, w, cout_p), dtype=torch.bfloat16, device=dev)
+    pk, v = wts.packed, wts.vecs
     ptrs = [None if t is None else t.data_ptr() for t in
-            (pk.w1, wts.s1, wts.b1, pk.w3, wts.s2, wts.b2, pk.w2, wts.s3,
-             wts.b3, pk.wp, wts.sp, wts.bp)]
+            (pk.w1, v.s1, v.b1, pk.w3, v.s2, v.b2, pk.w2, v.s3, v.b3, pk.wp,
+             v.sp, v.bp)]
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.alink_bottleneck(x.data_ptr(), n, h, w, cin, cm, cout,
-                                      *ptrs, out.data_ptr(), plan.slots,
-                                      plan.split, plan.blocks, stream)
+        status = lib.alink_bottleneck(x.data_ptr(), n, h, w, cin_p, cm_p,
+                                      cout_p, *ptrs, out.data_ptr(),
+                                      plan.slots, plan.split, plan.blocks,
+                                      stream)
     bottleneck_s1_kernel.launches += 1
     _build.check(status, "bottleneck")
-    return out
+    if keep_padded or cout_p == cout:
+        return out
+    return out[..., :cout].contiguous()
 
 
 bottleneck_s1_kernel.launches = 0
@@ -453,6 +533,12 @@ def bottleneck_chain(x: torch.Tensor,
     plain version on a CPU tensor; differentiable in ``x`` when grad is
     enabled and ``x`` requires it.  NHWC in, NHWC bf16 out."""
     grad = torch.is_grad_enabled() and x.requires_grad
+    if x.is_cuda and not grad and blocks:
+        # The padded width passes from block to block; sliced off once.
+        for wts in blocks:
+            x = bottleneck_s1_kernel(x, wts, keep_padded=True)
+        cout = blocks[-1].w2.shape[1]
+        return x if x.shape[-1] == cout else x[..., :cout].contiguous()
     for wts in blocks:
         x = BottleneckS1.apply(x, *wts) if grad else _block_forward(x, wts)
     return x

@@ -1,10 +1,17 @@
-"""Time kernels K3 (fused bottleneck) and K4 (int8 3x3 conv) on the card at
-the shapes their paths give them.
+"""Time kernels K1 (fused all-pairs scorer), K2 (alignment warp), K3 (fused
+bottleneck) and K4 (int8 3x3 conv) on the card at the shapes their paths
+give them.
 
-    python -m alink_tpu_torch.tools.bench_kernels        # ~1 min on one H100
+    python -m alink_tpu_torch.tools.bench_kernels        # ~2 min on one H100
+    python -m alink_tpu_torch.tools.bench_kernels --compare PARENT_TREE
 
 Prints, per shape (last line JSON):
 
+- K1 under the DFW head (512, 64) at 1000 x 1000 pairs of 512-d features
+  (serving: ArcFace embeddings) and of 2,048-d ones (training: VGGFace
+  features), then the 7,771 x 7,771 x 2,048 DFW evaluation grid once;
+- K2 warping 64 photos of 160 x 160 x 3 to 112 x 112 chips (f32), as
+  ``align_faces`` does at batch 64;
 - K3 at the five stride-1 block shapes of VGGFace-ResNet50 at 224x224, at
   batch 32 (``chip_smoke.py`` (e)'s batch) and 256 (``featurize_stacks``
   and the one-pixel DE's ``EVAL_BATCH``): the kernel's launch alone
@@ -42,6 +49,12 @@ K3_BATCHES = (32, 256)
 K4_SHAPES = ((56, 64, 64), (28, 128, 128), (14, 256, 256), (7, 512, 512),
              (14, 512, 512))
 K4_BATCH = 64
+# K1: (N, M, D) under the DFW head; the DFW evaluation grid.
+K1_SHAPES = ((1000, 1000, 512), (1000, 1000, 2048))
+K1_HEAD = (512, 64)
+K1_DFW = (7771, 7771, 2048)
+# K2: batch, photo side, channels, chip side.
+K2_SHAPE = (64, 160, 3, 112)
 
 
 def card() -> str:
@@ -123,17 +136,137 @@ def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True) -> float:
     return ms
 
 
-def kernel_ms(fn, counter) -> tuple[float, float]:
-    """(device ms per call, ``graph_ms``; ms per call from Python,
-    ``cuda_ms``) of a kernel wrapper's call ``fn``.  Raises where the device
-    time is below a hundredth of the time per call from Python, which no
-    kernel launched from Python reaches: a capture that timed nothing."""
-    ms = graph_ms(fn, counter=counter)
-    call = cuda_ms(fn)
+def kernel_ms(fn, counter, calls: int = 20) -> tuple[float, float]:
+    """(device ms per call, ``graph_ms`` over ``calls`` captured calls; ms
+    per call from Python, ``cuda_ms``) of a kernel wrapper's call ``fn``.
+    Raises where the device time is below a hundredth of the time per call
+    from Python, which no kernel launched from Python reaches: a capture
+    that timed nothing."""
+    ms = graph_ms(fn, calls=calls, counter=counter)
+    call = cuda_ms(fn, iters=calls, warmup=min(3, calls))
     if ms * 100 < call:
         raise RuntimeError(f"kernel_ms: {counter.__name__} {ms:.6f} ms on the "
                            f"device against {call:.4f} ms per call")
     return ms, call
+
+
+def bench_k1(dev, dfw: bool = False) -> dict:
+    """K1's launch under the DFW head (512, 64), weights packed once, at
+    ``K1_SHAPES`` on seeded normal features; with ``dfw``, the DFW grid
+    too, its device time over one captured call."""
+    from alink_tpu_torch.models import SiameseHead
+    from alink_tpu_torch.ops import pairwise
+
+    g = torch.Generator().manual_seed(SEED)
+    k1 = pairwise.score_matrix_kernel
+    shapes = K1_SHAPES + ((K1_DFW,) if dfw else ())
+    rows = []
+    for n, m, d in shapes:
+        head = SiameseHead(d, K1_HEAD, generator=g, device=dev)
+        left = torch.randn((n, d), generator=g).to(dev)
+        right = torch.randn((m, d), generator=g).to(dev)
+        ms, call = kernel_ms(lambda: k1(head, left, right), k1,
+                             calls=1 if (n, m, d) == K1_DFW else 20)
+        ops = 2.0 * n * m * (d * K1_HEAD[0] + K1_HEAD[0] * K1_HEAD[1])
+        print(f"K1 {n}x{m}x{d} head {K1_HEAD}: kernel {ms:.4f} ms "
+              f"({call:.4f} per call from Python; {ops / ms / 1e9:.1f} "
+              "TFLOP/s in the two hidden layers)", flush=True)
+        rows.append({"shape": f"{n}x{m}x{d}", "ms": ms, "call_ms": call})
+        del left, right
+    torch.cuda.empty_cache()
+    return {"shapes": rows}
+
+
+def k2_case(dev, g=None):
+    """Seeded photos (uniform 0-255 f32) and similarity transforms that
+    map a face of 0.7-1.1 x the chip's scale, turned by up to 0.35 rad,
+    into the chip."""
+    n, side, c, chip = K2_SHAPE
+    g = g or torch.Generator().manual_seed(SEED)
+    imgs = (torch.rand((n, side, side, c), generator=g) * 255).to(dev)
+    s = torch.rand(n, generator=g) * 0.4 + 0.7
+    th = (torch.rand(n, generator=g) - 0.5) * 0.7
+    a, b = s * torch.cos(th), s * torch.sin(th)
+    # chip centre <- photo centre (plus jitter)
+    cx = side / 2 + (torch.rand(n, generator=g) - 0.5) * 20
+    cy = side / 2 + (torch.rand(n, generator=g) - 0.5) * 20
+    tx = chip / 2 - (a * cx - b * cy)
+    ty = chip / 2 - (b * cx + a * cy)
+    Ms = torch.stack([torch.stack([a, -b, tx], -1),
+                      torch.stack([b, a, ty], -1)], 1)
+    return imgs, Ms.to(dev).contiguous(), (chip, chip)
+
+
+def bench_k2(dev) -> dict:
+    """K2's launch at ``K2_SHAPE``, f32: device time and time per call."""
+    from alink_tpu_torch.ops import image
+
+    imgs, Ms, size = k2_case(dev)
+    k2 = image.affine_warp_batch_kernel
+    ms, call = kernel_ms(lambda: k2(imgs, Ms, size), k2)
+    n, side, c, chip = K2_SHAPE
+    print(f"K2 {n}x{side}x{side}x{c} -> {chip}x{chip} f32: kernel {ms:.4f} ms "
+          f"({call:.4f} per call from Python)", flush=True)
+    return {"ms": ms, "call_ms": call}
+
+
+_TURN = """
+import importlib.util, json, sys
+sys.path.insert(0, {root!r})
+spec = importlib.util.spec_from_file_location("bench_turn", {this!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+import torch
+dev = torch.device("cuda:0")
+print("TURN " + json.dumps({{"k1": mod.bench_k1(dev), "k2": mod.bench_k2(dev)}}),
+      flush=True)
+"""
+
+
+def compare(parent: str) -> dict:
+    """K1 and K2 of the tree at ``parent`` and of this one, in turns:
+    parent, this, this, parent (one fresh interpreter each)."""
+    import os
+    from pathlib import Path
+
+    this_root = str(Path(__file__).resolve().parents[2])
+    turns = []
+    for name, root in (("parent", parent), ("change", this_root),
+                       ("change", this_root), ("parent", parent)):
+        root = str(Path(root).resolve())
+        res = subprocess.run(
+            [sys.executable, "-c", _TURN.format(root=root,
+                                                this=str(Path(__file__)
+                                                         .resolve()))],
+            cwd=root, env={**os.environ, "PYTHONPATH": root},
+            capture_output=True, text=True, check=False)
+        sys.stdout.write("".join(f"[{name}] {ln}\n" for ln in
+                                 res.stdout.splitlines()
+                                 if not ln.startswith("TURN ")))
+        if res.returncode != 0:
+            raise RuntimeError(f"{name} turn failed:\n{res.stderr[-4000:]}")
+        line = next(ln for ln in res.stdout.splitlines()
+                    if ln.startswith("TURN "))
+        turns.append((name, json.loads(line[5:])))
+    summary = {}
+    for key in ("k1", "k2"):
+        for i in range(len(turns[0][1]["k1"]["shapes"]) if key == "k1" else 1):
+            label = (turns[0][1]["k1"]["shapes"][i]["shape"] if key == "k1"
+                     else "64x160x160x3->112")
+            pick = (lambda r: r["k1"]["shapes"][i]) if key == "k1" else \
+                (lambda r: r["k2"])
+            row = {f: [(name, pick(r)[f]) for name, r in turns]
+                   for f in ("ms", "call_ms")}
+            summary[f"{key} {label}"] = row
+            p = [v for n_, v in row["ms"] if n_ == "parent"]
+            c = [v for n_, v in row["ms"] if n_ == "change"]
+            print(f"{key.upper()} {label}: device ms parent {p}, change {c} "
+                  f"({min(p) / max(c):.2f}x to {max(p) / min(c):.2f}x); per "
+                  f"call from Python parent "
+                  f"{[v for n_, v in row['call_ms'] if n_ == 'parent']}, "
+                  f"change {[v for n_, v in row['call_ms'] if n_ == 'change']}",
+                  flush=True)
+    return summary
 
 
 def k3_float_weights(cin, cm, cout, proj, g):
@@ -283,14 +416,25 @@ def bench_k4(dev, g=None) -> dict:
     return {"shapes": rows, **total}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", metavar="PARENT_TREE",
+                    help="time K1 and K2 of this tree against another's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
     smi = card()
     print(smi, flush=True)
-    report = {"card": smi, "k3": bench_k3(dev), "k4": bench_k4(dev)}
+    if args.compare:
+        report = {"card": smi, "compare": compare(args.compare)}
+    else:
+        report = {"card": smi, "k1": bench_k1(dev, dfw=True),
+                  "k2": bench_k2(dev), "k3": bench_k3(dev),
+                  "k4": bench_k4(dev)}
     print(json.dumps(report), flush=True)
     return 0
 

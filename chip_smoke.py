@@ -8,10 +8,14 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 
 a. device and build: require CUDA, print the card's name and power limit
    (``nvidia-smi``), build the CUDA kernels from ``alink_tpu_torch/csrc``;
-b. each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, with max |diff| and CUDA-event times of both
-   (the kernel's as device time, ``bench_kernels.graph_ms``, whose capture
-   is checked to have run the kernel, and per call from Python);
+b. K1 and K2 against their plain PyTorch versions on the card: K1 on
+   dyadic data (limit 1e-5) at D 512 and 2,048 under heads (512, 64) and
+   (128, 32), softmax and sigmoid, at H1 1,024, and on ragged grids; K2 in
+   16 border / interpolation / dtype / extreme-transform cases; with
+   CUDA-event times of both (the kernel's as device time,
+   ``bench_kernels.graph_ms``, whose capture is checked to have run the
+   kernel, and per call from Python), K1 at 1000 x 1000 pairs of 512-d and
+   of 2,048-d features;
 c. the slice at full width with seeded random weights: ArcFace r100 (bf16)
    behind the MTCNN cascade (typical budgets, open thresholds so every
    budget slot does work), 8 single-image requests through a
@@ -26,7 +30,9 @@ e. K3 (fused stride-1 bottleneck) against its plain version at the five
    stride-1 block shapes of VGGFace-ResNet50 at 224x224, at batch 32, 64
    and 256 (each launch setup the paths use: clusters of 4 and of 2 at
    7x7, persistent blocks, one block per tile): on dyadic data (exact,
-   limit 1e-6) and float data (relative 1e-2); then
+   limit 1e-6) and float data (relative 1e-2), and a chain of two blocks
+   at widths the kernel runs zero-padded (32 -> 80 -> 200, 200 -> 48 ->
+   200; dyadic, exact); then
    the device time of the launch alone (``bench_kernels.graph_ms``: calls
    captured in a CUDA graph and replayed; the time per call from Python
    beside it) per shape and over the 13 blocks of one forward at batch 32
@@ -137,27 +143,59 @@ def maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
 # and accumulate in f32, in different orders.  With float data the orders
 # disagree in the last bits, and where a hidden value then rounds to bf16 the
 # other way the scores differ by up to ~1e-3 once the logits span a few
-# units.  So phase (b) feeds dyadic data: integer features and parameters
-# that are small integers times 2^-7 or 2^-3, non-zero biases included.
-# Every product and partial sum is then exact in f32, both sides round the
-# same exact hidden values to bf16, and only the final sigmoid's rounding
-# differs.  The output layer is scaled so the scores span most of [0, 1].
+# units.  So phase (b) feeds dyadic data: integer features in [-4, 4] and
+# parameters that are small integers times a power of two, non-zero biases
+# included.  The hidden layers' scales shrink with their fan-in (2^-7 at 512,
+# 2^-8 at 2,048), which keeps every product and partial sum exact in f32 at
+# D 2,048 and H1 1,024 (checked against f64 on the CPU), so both sides round
+# the same exact hidden values to bf16 and only the final sigmoid's rounding
+# differs.  The output bias is then set on the same grid to centre the
+# logits, and the output layer scaled so the scores span most of [0, 1].
 K1_LIMIT = 1e-5
 # The slice feeds float embeddings (accumulation-order noise, see above).
 K1_SLICE_LIMIT = 1e-3
+# (rows, cols, D, head widths, head kind): the serving grid (D 512) and the
+# training one (D 2,048) under the DFW head (512, 64) and the SmallRes-sized
+# head (128, 32), softmax and sigmoid; an H1 above 512 (passes of 256);
+# ragged grids (D 98: the wrapper pads the features to a multiple of 4).
+K1_CASES = ((1000, 1000, 512, (512, 64), "softmax"),
+            (1000, 1000, 512, (512, 64), "sigmoid"),
+            (1000, 1000, 512, (128, 32), "softmax"),
+            (1000, 1000, 512, (128, 32), "sigmoid"),
+            (1000, 1000, 2048, (512, 64), "softmax"),
+            (1000, 1000, 2048, (512, 64), "sigmoid"),
+            (1000, 1000, 2048, (128, 32), "softmax"),
+            (1000, 1000, 2048, (128, 32), "sigmoid"),
+            (300, 300, 2048, (1024, 64), "softmax"),
+            (37, 53, 100, (512, 64), "softmax"),
+            (37, 53, 100, (128, 32), "sigmoid"),
+            (37, 53, 98, (128, 32), "softmax"))
+# Shapes timed: the serving and the training grid under the DFW head.
+K1_TIMED = ((1000, 1000, 512), (1000, 1000, 2048))
 
 
-def exact_head(kind: str, g: torch.Generator, dev):
-    """The DFW (512, 64) ``SiameseHead`` with dyadic parameters."""
+def exact_head(kind: str, g: torch.Generator, dev, d: int = 512,
+               widths: tuple[int, int] = (512, 64), rows=None, cols=None):
+    """A ``SiameseHead`` with dyadic parameters (see above); with sample
+    features ``rows``/``cols``, its output bias centres their logits."""
     from alink_tpu_torch.models import SiameseHead
+    from alink_tpu_torch.ops import pairwise
 
-    head = SiameseHead(512, (512, 64), head=kind, generator=g, device=dev)
+    head = SiameseHead(d, widths, head=kind, generator=g, device=dev)
+    k1 = 7 + round(np.log2(d / 512) / 2)
+    k2 = 7 + round(np.log2(widths[0] / 512) / 2)
+    k3 = 3 if widths[1] >= 64 else 2
     # (weight range, bias range, scale) per layer: hidden 0, hidden 1, out.
-    spec = ((3, 64, 2.0 ** -7), (3, 32, 2.0 ** -7), (15, 8, 2.0 ** -3))
+    spec = ((3, 64, 2.0 ** -k1), (3, 32, 2.0 ** -k2), (15, 8, 2.0 ** -k3))
     with torch.no_grad():
         for lin, (wr, br, s) in zip([*head.hidden, head.out], spec):
             for p, r in ((lin.weight, wr), (lin.bias, br)):
                 p.copy_(torch.randint(-r, r + 1, p.shape, generator=g) * s)
+        if rows is not None:
+            z = torch.special.logit(pairwise.score_matrix_reference(
+                head, rows, cols).double())
+            head.out.bias[-1] -= float(torch.round(torch.median(z) * 2 ** k3)
+                                       * 2.0 ** -k3)
     return head
 
 
@@ -183,17 +221,19 @@ def phase_kernels(dev, g, rng):
     """(b): kernels vs plain versions; returns per-kernel numbers."""
     from alink_tpu_torch.ops import image, pairwise
 
-    # K1: fused pair scorer, the DFW head (512, 64) over 512-d features.
-    head = exact_head("softmax", g, dev)
-    sig = exact_head("sigmoid", g, dev)
-    rows, cols = (torch.randint(-4, 5, (1000, 512), generator=g).float()
-                  .to(dev) for _ in range(2))
+    # K1: fused pair scorer on dyadic data at every case, then its device
+    # time under the DFW head (512, 64) at the serving and training grids.
+    feats = {}
     k1_err = 0.0
-    for name, hd, r, c in (("1000x1000 softmax", head, rows, cols),
-                           ("37x53 softmax", head, rows[:37], cols[:53]),
-                           ("1000x1000 sigmoid", sig, rows, cols)):
-        got = pairwise.score_matrix_kernel(hd, r, c)
-        want = pairwise.score_matrix_reference(hd, r, c)
+    for n, m, d, widths, kind in K1_CASES:
+        if d not in feats:
+            feats[d] = tuple(torch.randint(-4, 5, (1000, d), generator=g)
+                             .float().to(dev) for _ in range(2))
+        rows, cols = feats[d][0][:n], feats[d][1][:m]
+        hd = exact_head(kind, g, dev, d, widths, rows[:64], cols[:64])
+        name = f"{n}x{m}x{d} {widths} {kind}"
+        got = pairwise.score_matrix_kernel(hd, rows, cols)
+        want = pairwise.score_matrix_reference(hd, rows, cols)
         torch.cuda.synchronize()
         err = maxdiff(got, want)
         q05, q95 = torch.quantile(want.flatten()[:100_000],
@@ -206,13 +246,24 @@ def phase_kernels(dev, g, rng):
         check(float(q95 - q05) >= 0.4, f"K1 {name}: scores too narrow to "
               "tell a faulty kernel from a right one")
         k1_err = max(k1_err, err)
-    k1_ms, k1_call = kernel_ms(
-        lambda: pairwise.score_matrix_kernel(head, rows, cols),
-        pairwise.score_matrix_kernel)
-    k1_plain = cuda_ms(
-        lambda: pairwise.score_matrix_reference(head, rows, cols), iters=5)
-    print(f"K1 1000x1000x512 (512, 64): kernel {k1_ms:.4f} ms ({k1_call:.4f} "
-          f"per call from Python), plain {k1_plain:.4f} ms", flush=True)
+    k1_t = {}
+    for n, m, d in K1_TIMED:
+        hd = exact_head("softmax", g, dev, d)
+        rows, cols = feats[d][0][:n], feats[d][1][:m]
+        ms, call = kernel_ms(
+            lambda: pairwise.score_matrix_kernel(hd, rows, cols),
+            pairwise.score_matrix_kernel)
+        plain = cuda_ms(
+            lambda: pairwise.score_matrix_reference(hd, rows, cols), iters=3)
+        ops = n * m * (d + 2 * d * 512 + 2 * 512 * 64 + 2 * 64 * 2)
+        nbytes = 4 * (n * d + m * d + n * m) + 2 * (d * 512 + 512 * 64 + 128)
+        k1_t[d] = (ms, call, plain, ops, nbytes)
+        tf = ops / ms / 1e9
+        print(f"K1 {n}x{m}x{d} (512, 64): kernel {ms:.4f} ms ({call:.4f} per "
+              f"call from Python), plain {plain:.4f} ms, {tf:.1f} TFLOP/s "
+              f"({100 * tf / H100_BF16_TFLOPS:.1f} % of "
+              f"{H100_BF16_TFLOPS:.0f} dense bf16)", flush=True)
+    head = exact_head("softmax", g, dev)
 
     # K2: affine warp, 64 photos 160x160x3 -> 112x112 chips.
     imgs = torch.tensor(rng.uniform(0, 255, (BATCH, IMG, IMG, 3)),
@@ -259,10 +310,9 @@ def phase_kernels(dev, g, rng):
           f"({k2_call:.4f} per call from Python), plain {k2_plain:.4f} ms",
           flush=True)
     # Bounds from the shapes: K1's head in bf16 on the tensor cores over
-    # f32 features; K2 moves its f32 photos in and chips out.
-    n, m, d = rows.shape[0], cols.shape[0], rows.shape[1]
-    k1_ops = n * m * (d + 2 * d * 512 + 2 * 512 * 64 + 2 * 64 * 2)
-    k1_bytes = 4 * (n * d + m * d + n * m) + 2 * (d * 512 + 512 * 64 + 128)
+    # f32 features (the serving grid, D 512); K2 moves its f32 photos in and
+    # chips out.
+    k1_ms, k1_call, k1_plain, k1_ops, k1_bytes = k1_t[512]
     k2_bytes = 4 * (imgs.numel() + BATCH * 112 * 112 * 3)
     k2_ops = 8 * BATCH * 112 * 112 * 3
     return head, {
@@ -425,6 +475,27 @@ def phase_k3(dev, g):
                 ops_fwd += count * t_ops
                 bytes_fwd += count * t_bytes
             del x, got, want, wts
+    # Widths the kernel runs zero-padded: a projected 32 -> 80 -> 200 block
+    # and an identity 200 -> 48 -> 200 block, chained (the padded width
+    # carried between them), on dyadic data: exact.
+    ws = (k3_weights(32, 80, 200, True, g, dev, True),
+          k3_weights(200, 48, 200, False, g, dev, True))
+    x = torch.randint(-2, 3, (K3_BATCH, 28, 28, 32), generator=gd,
+                      device=dev).to(torch.bfloat16)
+    got = resblock.bottleneck_chain(x, ws)
+    want = resblock.bottleneck_chain_reference(x, ws)
+    torch.cuda.synchronize()
+    err = maxdiff(got, want)
+    nonzero = float((want != 0).float().mean())
+    print(f"K3 padded widths 28x28 32->80->200 proj, 200->48->200 batch "
+          f"{K3_BATCH} dyadic: max|diff| {err:.3e} (limit {K3_EXACT_LIMIT}); "
+          f"{100 * nonzero:.0f} % non-zero", flush=True)
+    check(got.shape == want.shape == (K3_BATCH, 28, 28, 200)
+          and got.dtype == torch.bfloat16, "K3 padded widths: bad output")
+    check(err <= K3_EXACT_LIMIT and nonzero > 0.2,
+          f"K3 padded widths: max|diff| {err} > {K3_EXACT_LIMIT}")
+    err_all = max(err_all, err)
+    del x, got, want, ws
     torch.cuda.empty_cache()
     times = bench_k3(dev, (K3_BATCH, 256), g)
     for batch, res in times.items():

@@ -1,12 +1,13 @@
-"""Host-side layouts and launch plans of kernels K3 (``ops/resblock.py``)
-and K4 (``ops/qconv.py``), on the CPU at the shapes the main paths give
-them.
+"""Host-side layouts and launch plans of kernels K1 (``ops/pairwise.py``),
+K2 (``ops/image.py``), K3 (``ops/resblock.py``) and K4 (``ops/qconv.py``),
+on the CPU at the shapes the main paths give them.
 
 - each packing function round-trips to the JAX-layout weights exactly
   (bit-equal: packing only moves and pads values);
 - each launch plan covers every output pixel x channel exactly once, and
   every row a tile reads lies inside its staged window and inside the
   input;
+- K3's zero padding to the widths it tiles is exact;
 - each launch plan is one the kernel's C entry point accepts (the wrapper
   passes the plan's ring, boxes, cluster size and grid; the entry point
   checks them and refuses a launch otherwise), on an H100 SXM (132 SMs)
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from alink_tpu_torch.models import SiameseHead
+from alink_tpu_torch.ops import image, pairwise
 from alink_tpu_torch.ops import qconv as tq
 from alink_tpu_torch.ops import resblock
 
@@ -218,6 +221,98 @@ def test_pack_bottleneck_round_trips(hw, cin, cm, cout, proj):
         assert (got is None and want is None) or torch.equal(got, want)
 
 
+# Widths the kernel does not tile: identity and projected.
+K3_ODD = [(96, 48, 96, False), (32, 80, 200, True), (200, 48, 200, False)]
+
+
+@pytest.mark.parametrize("cin,cm,cout,proj", K3_ODD)
+def test_pack_bottleneck_pads_odd_widths(cin, cm, cout, proj):
+    """``kernel_weights`` packs the weights zero-padded to the widths the
+    kernel runs (64 or a multiple of 128): the packing round-trips to
+    ``pad_bottleneck``'s matrices, which hold the weights in their leading
+    rows and columns and zeros elsewhere; pad scales and shifts are 0."""
+    kw = resblock.kernel_weights(_k3_weights(cin, cm, cout, proj, cin + cm),
+                                 torch.device("cpu"))
+    ci, cmp_, co = (resblock.padded_width(c) for c in (cin, cm, cout))
+    assert ci % 64 == 0 and cmp_ in (64, 128, 256) and co % 128 == 0
+    assert (ci == co) or proj          # identity pads Cin and Cout alike
+    resblock._check_packed(kw, torch.device("cpu"))
+    pw = resblock.pad_bottleneck(kw)
+    back = resblock.unpack_bottleneck(kw.packed)
+    for got, want, small in zip(back, (pw.w1, pw.w3, pw.w2, pw.wp),
+                                (kw.w1, kw.w3, kw.w2, kw.wp)):
+        if want is None:
+            assert got is None and small is None
+            continue
+        assert torch.equal(got, want)
+        lead = tuple(slice(0, k) for k in small.shape)
+        assert torch.equal(got[lead], small)
+        rest = got.clone()
+        rest[lead] = 0
+        assert not rest.any()
+    for v, small in zip(kw.vecs, (kw.s1, kw.b1, kw.s2, kw.b2, kw.s3, kw.b3,
+                                  kw.sp, kw.bp)):
+        if small is None:
+            assert v is None
+            continue
+        assert v.dtype == torch.float32 and v.is_contiguous()
+        assert torch.equal(v[:small.shape[0]], small)
+        assert not v[small.shape[0]:].any()
+
+
+@pytest.mark.parametrize("cin,cm,cout,proj", K3_ODD)
+def test_padded_plain_block_equals_unpadded(cin, cm, cout, proj):
+    """The plain block on the weights and input padded by the function the
+    kernel path uses, pad channels sliced off, equals the plain block on
+    the unpadded ones bit for bit, and its pad channels are 0.  Dyadic data
+    (integer activations, weights in {-1, 0, 1}, power-of-two BN) keep every
+    f32 sum exact, so summing more zeros in another blocking cannot round
+    differently: what is tested is the padding alone."""
+    g = torch.Generator().manual_seed(cin * cm + cout)
+
+    def mat(*shape):
+        return torch.randint(-1, 2, shape, generator=g).float()
+
+    def bn(c):
+        return (torch.randint(1, 3, (c,), generator=g) * 0.125,
+                torch.randint(-3, 4, (c,), generator=g) * 0.125)
+
+    wts = resblock.BottleneckWeights(mat(cin, cm), *bn(cm), mat(3, 3, cm, cm),
+                                     *bn(cm), mat(cm, cout), *bn(cout))
+    if proj:
+        wts = wts._replace(wp=mat(cin, cout), sp=bn(cout)[0], bp=bn(cout)[1])
+    x = torch.randint(-2, 3, (2, 5, 7, cin), generator=g).float()
+    want = resblock.bottleneck_s1_reference(x, wts)
+    pw = resblock.pad_bottleneck(wts)
+    xp = torch.nn.functional.pad(x, (0, pw.w1.shape[0] - cin))
+    got = resblock.bottleneck_s1_reference(xp, pw)
+    assert got.shape[-1] == resblock.padded_width(cout)
+    assert torch.equal(got[..., :cout], want)
+    assert not got[..., cout:].float().any()
+    assert float((want != 0).float().mean()) > 0.2
+
+
+@pytest.mark.parametrize("cin,cm,cout,proj", K3_ODD)
+def test_bottleneck_launch_plan_covers_padded_widths(cin, cm, cout, proj):
+    """The launch plan at the padded widths passes the entry point's checks
+    (2-4 ring entries in shared memory, a cluster size dividing the
+    passes) at 132 and 114 SMs."""
+    ci, cmp_, co = (resblock.padded_width(c) for c in (cin, cm, cout))
+    for sms in (132, 114):
+        plan = resblock.launch_plan(32, 28, 28, ci, cmp_, co, proj, sms)
+        assert 2 <= plan.slots <= 4 and plan.smem <= 232448
+        n1, n3 = min(cmp_, 128), min(co, 128)
+        assert (cmp_ // n1) % plan.split == 0 and (co // n3) % plan.split == 0
+
+
+def test_bottleneck_kernel_names_the_width_it_refuses():
+    """Above a padded Cm of 512 the wrapper raises, naming the reason."""
+    wts = resblock.kernel_weights(_k3_weights(64, 576, 64, True, 3),
+                                  torch.device("cpu"))
+    with pytest.raises(ValueError, match="pass wide"):
+        resblock.bottleneck_s1_kernel(torch.zeros(1, 4, 4, 64), wts)
+
+
 @pytest.mark.parametrize("batch", [32, 256])
 @pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)
 def test_bottleneck_launch_plan_covers_each_output_once(hw, cin, cm, cout,
@@ -315,10 +410,218 @@ def test_bottleneck_kernel_refuses_unpacked_weights():
     bad = wts.packed._replace(w2=wts.packed.w2[:1].contiguous())
     with pytest.raises(ValueError, match="packed w2"):
         resblock._check_packed(wts._replace(packed=bad), torch.device("cpu"))
-    # Widths the kernel does not tile are not packed, and are refused.
+    # Widths the kernel does not tile run zero-padded (packed at the padded
+    # widths); a Cm that pads past 512 is not packed, and is refused.
     odd = resblock.kernel_weights(_k3_weights(32, 16, 64, True, 1),
                                   torch.device("cpu"))
-    assert odd.packed is None and not resblock.kernel_takes(32, 16, 64)
-    # Cin is staged in pairs of 32-channel slabs: 64 at a time.
-    assert not resblock.kernel_takes(96, 64, 64)
-    assert resblock.kernel_takes(128, 64, 64)
+    assert odd.packed is not None and resblock.kernel_takes(32, 16, 64)
+    resblock._check_packed(odd, torch.device("cpu"))
+    assert odd.packed.w1.shape == (1, 2, 64, 32)
+    assert resblock.kernel_takes(96, 64, 64)
+    assert resblock.kernel_takes(128, 512, 64)
+    assert not resblock.kernel_takes(64, 513, 256)
+    wide = resblock.kernel_weights(_k3_weights(64, 576, 64, True, 2),
+                                   torch.device("cpu"))
+    assert wide.packed is None and wide.vecs is None
+
+
+# -- K1 ----------------------------------------------------------------------
+
+# (D, head widths, head kind): the DFW head over ArcFace embeddings and over
+# VGGFace features, the SmallRes-sized head, a sigmoid head, a wide H1 and
+# an H2 that narrows the pass.
+K1_HEADS = [(512, (512, 64), "softmax"), (2048, (512, 64), "softmax"),
+            (512, (128, 32), "softmax"), (100, (512, 64), "sigmoid"),
+            (2048, (1024, 64), "softmax"), (96, (300, 200), "sigmoid")]
+# (N, M, D): the serving grid, a ragged one, the training one.
+K1_GRIDS = [(1000, 1000, 512), (37, 53, 100), (300, 300, 2048)]
+# (np1, h2p) pairs csrc/pair_score.cu is built for (ALINK_PAIR_LAUNCH).
+K1_BUILT = {(256, 32), (256, 64), (128, 32), (128, 64), (128, 128), (64, 256)}
+
+
+def _head(d, widths, kind, seed=0):
+    return SiameseHead(d, widths, head=kind, dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("d,widths,kind", K1_HEADS)
+def test_pack_head_round_trips(d, widths, kind):
+    """``pack_head`` holds the head's weights, bf16-rounded, in the layout
+    the kernel stages; ``unpack_head`` gives back ``head_weights``.  A
+    sigmoid head's output enters as [0, logit]."""
+    head = _head(d, widths, kind)
+    p = pairwise.pack_head(head)
+    np1, h2p, h1p = pairwise.head_tiling(*widths)
+    assert (p.np1, p.h2p) in K1_BUILT and h1p % np1 == 0
+    assert p.w1.shape == (h1p // np1, -(-d // 64), 4, np1 // 8, 2, 8, 8)
+    assert p.w2.shape == (h1p // np1, np1 // 16, h2p // 8, 2, 8, 8)
+    assert p.w1.dtype == p.w2.dtype == torch.bfloat16
+    assert all(t.is_contiguous() for t in p[:6])
+    # Slab k, slice s, column group gr, half hf, row r, element e holds
+    # W1[64 k + 16 s + _K_PERM[8 hf + e], np1 pass + 8 gr + r].
+    w1 = head.hidden[0].weight.t().detach()
+    q, k, s, gr, hf, r, e = 0, 1 % p.w1.shape[1], 2, 3, 1, 5, 6
+    row = 64 * k + 16 * s + pairwise._K_PERM[8 * hf + e]
+    if row < d:
+        assert p.w1[q, k, s, gr, hf, r, e] == w1[row, 8 * gr + r].to(
+            torch.bfloat16)
+    for (w, b), (wh, bh) in zip(pairwise.unpack_head(p),
+                                pairwise.head_weights(head)):
+        assert torch.equal(w, wh.detach().to(torch.bfloat16).float())
+        assert torch.equal(b, bh.detach().float())
+    # Padding is zeros: columns past H1 and H2, rows past D.
+    assert not p.b1[widths[0]:].any() and not p.b2[widths[1]:].any()
+    assert not p.wo[widths[1]:].any()
+
+
+def test_packed_head_follows_in_place_training():
+    """The packed copy is cached on the head, keyed on each parameter's
+    identity and version: an optimizer step repacks, and the next score
+    through the packed weights follows the plain version's; moving the
+    module or loading a state drops the cache."""
+    head = _head(48, (64, 32), "softmax", seed=3)
+    rng = np.random.default_rng(3)
+    rows = torch.from_numpy(rng.normal(size=(7, 48)).astype(np.float32))
+    cols = torch.from_numpy(rng.normal(size=(9, 48)).astype(np.float32))
+
+    def packed_scores():
+        layers = pairwise.unpack_head(pairwise.packed_head(head, "cpu"))
+        return pairwise._apply_head(torch.abs(rows[:, None] - cols[None]),
+                                    layers)
+
+    p0 = pairwise.packed_head(head, "cpu")
+    assert pairwise.packed_head(head, "cpu") is p0       # cached
+    before = packed_scores()
+    assert torch.equal(before, pairwise.score_matrix_reference(head, rows,
+                                                               cols))
+    opt = torch.optim.SGD(head.parameters(), lr=0.5)
+    loss = head(rows, cols[:7])[:, 1].sum()
+    loss.backward()
+    opt.step()
+    assert pairwise.packed_head(head, "cpu") is not p0
+    after = packed_scores()
+    assert not torch.equal(after, before)
+    assert torch.equal(after, pairwise.score_matrix_reference(head, rows,
+                                                              cols))
+    p1 = pairwise.packed_head(head, "cpu")
+    head.load_state_dict(_head(48, (64, 32), "softmax", seed=4).state_dict())
+    assert head._packed is None
+    assert pairwise.packed_head(head, "cpu") is not p1
+    head.to(torch.float32)
+    assert head._packed is None
+
+
+def _k1_entry_checks(plan, n, m, d):
+    """The checks of ``alink_pair_score`` (csrc/pair_score.cu) on a plan."""
+    assert d > 0 and d % 4 == 0 and n > 0 and m > 0
+    assert (plan.np1, plan.h2p) in K1_BUILT
+    assert plan.h1p > 0 and plan.h1p % plan.np1 == 0
+    assert 2 <= plan.stages <= 8 and plan.group >= 1
+    assert plan.tiles_i == -(-n // 8) and plan.tiles_j == -(-m // 16)
+    assert 1 <= plan.grid <= plan.tiles_i * plan.tiles_j
+    assert plan.stage_bytes % 1024 == 0
+    # Ring, scores, barriers and, with 256-wide passes, the layer-2
+    # accumulator's stash (256 threads x h2p / 2 f32).
+    stash = 256 * plan.h2p * 2 if plan.np1 == 256 else 0
+    assert plan.smem == plan.stages * plan.stage_bytes + 512 + 128 + stash
+    assert plan.smem <= 232448
+    # The kernel's stage holds a slab of both feature tiles and of W1's
+    # pass, or one pass of W2.
+    assert plan.stage_bytes >= max(6144 + plan.np1 * 128,
+                                   plan.np1 * plan.h2p * 2)
+    # Two accumulators a consumer thread, within its 232 registers.
+    assert plan.np1 // 2 + plan.h2p // 2 <= 160
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,m,d", K1_GRIDS)
+def test_pair_score_launch_plan_covers_each_pair_once(n, m, d, sms):
+    """Block b walks tiles b, b + grid, ...: every 8 x 16 tile once, so
+    every pair once; every copy the producer starts (W1 slabs, W2 passes,
+    feature boxes) and every bias and output-layer read lies inside its
+    tensor."""
+    h1, h2 = (512, 64) if d != 2048 else (1024, 64)
+    plan = pairwise.launch_plan(n, m, d, h1, h2, sms)
+    assert plan.grid == min(plan.tiles, sms)
+    hits = torch.zeros(plan.tiles_i * 8, plan.tiles_j * 16, dtype=torch.int64)
+    for b in range(plan.grid):
+        for t in range(b, plan.tiles, plan.grid):
+            ti, tj = pairwise.tile_coords(plan, t)
+            assert 0 <= ti < plan.tiles_i and 0 <= tj < plan.tiles_j
+            hits[8 * ti:8 * ti + 8, 16 * tj:16 * tj + 16] += 1
+    assert bool((hits == 1).all())
+    # Reads: W1 slab (pass p, slab k) and W2 pass p, in elements.
+    w1_numel = plan.passes * plan.nslab * plan.np1 * 64
+    w2_numel = plan.passes * plan.np1 * plan.h2p
+    p, k = plan.passes - 1, plan.nslab - 1
+    assert (p * plan.nslab + k) * plan.np1 * 64 + plan.np1 * 64 == w1_numel
+    assert p * plan.np1 * plan.h2p + plan.np1 * plan.h2p == w2_numel
+    packed = pairwise.pack_head(_head(d, (h1, h2), "softmax"))
+    assert packed.w1.numel() == w1_numel and packed.w2.numel() == w2_numel
+    # Feature boxes start inside the padded slab range and at a tile's rows.
+    assert (plan.nslab - 1) * 64 + 32 < plan.dp and plan.dp - d < 64
+    assert (plan.tiles_i - 1) * 8 < n and (plan.tiles_j - 1) * 16 < m
+    # b1 (pass, column pair), b2 and wo (2 per H2 column) reads.
+    assert plan.passes * plan.np1 == plan.h1p == packed.b1.numel()
+    assert packed.b2.numel() == plan.h2p and packed.wo.numel() == 2 * plan.h2p
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,m,d", K1_GRIDS)
+def test_pair_score_launch_plan_passes_the_entry_points_checks(n, m, d, sms):
+    for h1, h2 in ((512, 64), (128, 32), (1024, 64), (300, 200)):
+        _k1_entry_checks(pairwise.launch_plan(n, m, d, h1, h2, sms), n, m, d)
+
+
+def test_pair_score_head_tiling_limits():
+    """Any H1 (passes); H2 up to 256, a wide H2 narrowing the pass."""
+    assert pairwise.head_tiling(512, 64) == (256, 64, 512)
+    assert pairwise.head_tiling(128, 32) == (128, 32, 128)
+    assert pairwise.head_tiling(4096, 64) == (256, 64, 4096)
+    assert pairwise.head_tiling(512, 256) == (64, 256, 512)
+    assert pairwise.head_tiling(300, 100) == (128, 128, 384)
+    with pytest.raises(ValueError, match="H2"):
+        pairwise.head_tiling(512, 257)
+
+
+# -- K2 ----------------------------------------------------------------------
+
+def _kernel_inverse(Ms: np.ndarray) -> np.ndarray:
+    """Python mirror of csrc/affine_warp.cu's block prologue: the inverse
+    map of each forward affine [a b bx; c d by] in f32, op by op:
+    det = a*d - b*c (two rounded products, a rounded difference), then
+    d/det, -b/det, -c/det, a/det (IEEE divisions)."""
+    m = Ms.reshape(-1, 6).astype(np.float32)
+    a, b, bx, c, d, by = (m[:, i] for i in range(6))
+    with np.errstate(all="ignore"):
+        det = np.float32(a * d) - np.float32(b * c)
+        return np.stack([d / det, -b / det, -c / det, a / det, bx, by], 1)
+
+
+def test_warp_kernel_inverse_mirror_matches_warp_params():
+    """The kernel derives the inverse the plain version computes with
+    ``_warp_params``, bit for bit: near-identity and similarity transforms,
+    tiny and huge scales, and singular ones (0/0 -> NaN, x/0 -> inf)."""
+    rng = np.random.default_rng(5)
+    s = rng.uniform(0.5, 1.6, 200)
+    th = rng.uniform(-np.pi, np.pi, 200)
+    Ms = np.stack([np.stack([s * np.cos(th), -s * np.sin(th),
+                             rng.uniform(-80, 80, 200)], -1),
+                   np.stack([s * np.sin(th), s * np.cos(th),
+                             rng.uniform(-80, 80, 200)], -1)], 1)
+    Ms = np.concatenate([Ms, rng.normal(size=(50, 2, 3)) * 1e-3,
+                         rng.normal(size=(50, 2, 3)) * 1e3, np.array([
+                             [[0.0, 0.0, 56.0], [0.0, 0.0, 60.0]],
+                             [[1.0, 1.0, 0.0], [1.0, 1.0, 10.0]],
+                             [[2.0, -4.0, 1.0], [-1.0, 2.0, 3.0]],
+                             [[0.01, 0.0, 50.0], [0.0, 0.01, 50.0]],
+                             [[-1.0, 0.0, 111.0], [0.0, 1.0, 0.0]]])])
+    Ms = Ms.astype(np.float32)
+    want = image._warp_params(torch.from_numpy(Ms)).numpy()
+    got = _kernel_inverse(Ms)
+    assert got.shape == want.shape == (len(Ms), 6)
+    nan = np.isnan(want)
+    assert np.array_equal(nan, np.isnan(got)) and nan[-5, :4].all()
+    assert np.isinf(want[-4, :4]).all() and np.isinf(want[-3, :4]).all()
+    assert np.array_equal(got[~nan].view(np.uint32),
+                          want[~nan].view(np.uint32))

@@ -37,6 +37,7 @@ from alink_tpu.models import preprocess as jpreprocess
 from alink_tpu.models.resnet import VGGFaceResNet50 as JVGG
 from alink_tpu.models.resnet import _Bottleneck as JBottleneck
 from alink_tpu.models.resnet import bottleneck_weights as jbottleneck_weights
+from alink_tpu.ops.resblock import BottleneckWeights as JBottleneckWeights
 from alink_tpu.ops.resblock import bottleneck_chain as jbottleneck_chain
 from alink_tpu.train.ensemble import create_ensemble_state as jcreate_ens
 from alink_tpu.train.ensemble import train_ensemble as jtrain_ensemble
@@ -117,6 +118,39 @@ def test_bottleneck_plain_matches_pallas_kernel(project, cin, f):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert torch.equal(got, ref)
         _bf16_close(got, want)
+
+
+def _np_block(cin, cm, cout, proj, rng):
+    """Folded-BN weights of one block at any widths (numpy f32)."""
+    def mat(*shape):
+        return (rng.normal(size=shape) / np.sqrt(shape[-2] * (
+            9 if len(shape) == 4 else 1))).astype(np.float32)
+
+    def bn(c):
+        return (rng.uniform(0.5, 1.5, c).astype(np.float32),
+                rng.uniform(-0.2, 0.2, c).astype(np.float32))
+
+    ws = [mat(cin, cm), *bn(cm), mat(3, 3, cm, cm), *bn(cm), mat(cm, cout),
+          *bn(cout)]
+    if proj:
+        ws += [mat(cin, cout), *bn(cout)]
+    return JBottleneckWeights(*ws)
+
+
+def test_bottleneck_chain_at_odd_widths_matches_pallas_kernel():
+    """Widths K3 runs zero-padded (Cin 32 -> Cm 80 -> Cout 200 projected,
+    then 200 -> 48 -> 200 identity): the plain chain against the JAX chain
+    in interpret mode, which pads every width to 128 lanes."""
+    rng = np.random.default_rng(11)
+    x = np.abs(rng.normal(size=(2, 7, 9, 32))).astype(np.float32)
+    jws = (_np_block(32, 80, 200, True, rng), _np_block(200, 48, 200, False,
+                                                       rng))
+    want = np.asarray(jbottleneck_chain(jnp.asarray(x), jws, interpret=True),
+                      np.float32)
+    got = resblock.bottleneck_chain(torch.from_numpy(x),
+                                    tuple(_port_weights(w) for w in jws))
+    assert got.shape == want.shape == (2, 7, 9, 200)
+    _bf16_close(got, want)
 
 
 def test_bottleneck_chain_of_two_matches_pallas_kernel():

@@ -32,16 +32,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # img, is_u8, M (forward affines), out, n, h, w, c, oh, ow,
+    # img, dtype (0 f32, 1 uint8, 2 bf16), M (forward affines), out, n, h,
+    # w, c, oh, ow,
     # border_nearest, interp_nearest, stream
     "alink_affine_warp": [_P, _I, _P, _P] + [_I] * 8 + [_P],
     # x, n, h, w, cin, cm, cout, w1, s1, b1, w3, s2, b2, w2, s3, b3, wp, sp,
-    # bp, out, slots, split, blocks, stream
-    "alink_bottleneck": [_P] + [_I] * 6 + [_P] * 13 + [_I] * 3 + [_P],
+    # bp, out, act (global y1/y2 scratch or null), slots, split, blocks,
+    # stream
+    "alink_bottleneck": [_P] + [_I] * 6 + [_P] * 14 + [_I] * 3 + [_P],
     # rows, cols, n, m, d, w1, b1, h1p, w2, b2, h2p, wo, bo, out, np1,
-    # stages, grid, group, stream
+    # stages, grid, group, mode, stream
     "alink_pair_score": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P,
-                         _P, _I, _I, _I, _I, _P],
+                         _P, _I, _I, _I, _I, _I, _P],
     # x, x_rows, ldx, cin_k, wk, cout_k, scale, bias, alpha, qscale, out,
     # ldo, mode, n, h, w, wp, r, lead, stages, resident, box_rows, nbox,
     # grid_x, stream

@@ -25,16 +25,20 @@
 //     __fadd_rn: no contraction into FMAs), the roundings of the plain
 //     PyTorch version, so both sample at the same coordinates: one ulp of
 //     coordinate moves a pixel of a high-contrast image by ~1e-3;
-//   - the taps and the blend are f32 with the same roundings; integer
-//     outputs round half to even and saturate, like _cast_like;
+//   - the taps and the blend are f32 with the same roundings, whatever the
+//     image type (f32, uint8 or bf16: the plain version promotes to f32
+//     too); integer outputs round half to even and saturate, like
+//     _cast_like, bf16 outputs are rounded once, on the store;
 //   - a NaN sample coordinate (singular transform) gives a NaN pixel (0 in
 //     uint8), an infinite one lies outside the image, as in the JAX warp;
 //   - the tile's pixels are gathered into shared memory and leave in
 //     16-byte stores: its rows are one contiguous run of the output, so
-//     the 12-byte (f32) and 3-byte (uint8) pixels need no scattered store.
+//     the 12-byte (f32), 6-byte (bf16) and 3-byte (uint8) pixels need no
+//     scattered store.
 // 32-bit index arithmetic throughout: the entry point refuses an image or
 // output of 2^31 elements or more.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +59,19 @@ __device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
   // fmaxf returns 0 for a NaN v: XLA's NaN -> integer cast gives 0 too.
   v = fminf(fmaxf(rintf(v), 0.0f), 255.0f);
   return static_cast<uint8_t>(v);
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);   // round to nearest even; NaN stays NaN
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint8_t v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // Output pixel (x, y) of an image into c channels at dst, from the inverse
@@ -117,10 +134,10 @@ __device__ __forceinline__ void warp_pixel(const T* __restrict__ base,
   const T* p11 = base + (cy1 * w + cx1) * nc;
 #pragma unroll
   for (int ch = 0; ch < nc; ++ch) {
-    const float v00 = (vy0 && vx0) ? static_cast<float>(p00[ch]) : 0.0f;
-    const float v01 = (vy0 && vx1) ? static_cast<float>(p01[ch]) : 0.0f;
-    const float v10 = (vy1 && vx0) ? static_cast<float>(p10[ch]) : 0.0f;
-    const float v11 = (vy1 && vx1) ? static_cast<float>(p11[ch]) : 0.0f;
+    const float v00 = (vy0 && vx0) ? to_f32(p00[ch]) : 0.0f;
+    const float v01 = (vy0 && vx1) ? to_f32(p01[ch]) : 0.0f;
+    const float v10 = (vy1 && vx0) ? to_f32(p10[ch]) : 0.0f;
+    const float v11 = (vy1 && vx1) ? to_f32(p11[ch]) : 0.0f;
     const float top = __fadd_rn(__fmul_rn(v00, ux), __fmul_rn(v01, wx));
     const float bot = __fadd_rn(__fmul_rn(v10, ux), __fmul_rn(v11, wx));
     const float v = __fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, wy));
@@ -215,15 +232,16 @@ int launch(const void* img, const float* M, void* out, int n, int h, int w,
 
 }  // namespace
 
-// img (n, h, w, c) and out (n, oh, ow, c): float32 (is_u8 0) or uint8
-// (is_u8 1); M (n, 2, 3) f32 forward affines.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for sizes past 32-bit
-// indexing.
-extern "C" int alink_affine_warp(const void* img, int is_u8, const void* M,
+// img (n, h, w, c) and out (n, oh, ow, c) of one type: float32 (dtype 0),
+// uint8 (1) or bfloat16 (2); M (n, 2, 3) f32 forward affines.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for another
+// dtype code or sizes past 32-bit indexing.
+extern "C" int alink_affine_warp(const void* img, int dtype, const void* M,
                                  void* out, int n, int h, int w, int c, int oh,
                                  int ow, int border_nearest,
                                  int interp_nearest, void* stream) {
   if (n < 0 || h <= 0 || w <= 0 || c <= 0 || oh < 0 || ow < 0 ||
+      dtype < 0 || dtype > 2 ||
       static_cast<long long>(h) * w * c >= (1LL << 31) ||
       static_cast<long long>(oh) * ow * c >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -233,9 +251,13 @@ extern "C" int alink_affine_warp(const void* img, int is_u8, const void* M,
   }
   const float* mf = static_cast<const float*>(M);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_u8) {
+  if (dtype == 1) {
     return launch<uint8_t>(img, mf, out, n, h, w, c, oh, ow, border_nearest,
                            interp_nearest, st);
+  }
+  if (dtype == 2) {
+    return launch<__nv_bfloat16>(img, mf, out, n, h, w, c, oh, ow,
+                                 border_nearest, interp_nearest, st);
   }
   return launch<float>(img, mf, out, n, h, w, c, oh, ow, border_nearest,
                        interp_nearest, st);

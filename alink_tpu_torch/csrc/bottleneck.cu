@@ -51,9 +51,18 @@
 //     (distributed shared memory), which then wait on an mbarrier that
 //     every consumer thread of the cluster arrives on.
 // Shared memory is (102 + 64) * Cm * 2 bytes plus the ring: 226 KB at
-// Cm = 512 with 2 entries.  ops/resblock.py holds the limits and decides
-// each launch (launch_plan: ring entries, cluster size, grid); the entry
-// point below checks and follows it.
+// Cm = 512 with 2 entries.  A wider Cm (the TPU kernel takes any width its
+// VMEM holds) keeps y1 and y2 in global memory instead, in a scratch
+// region of (102 + 64) * Cm bf16 per block that the wrapper allocates:
+// each block of a persistent grid (one per SM, split 1) writes its tile's
+// y1 and y2 there and reads its stage-2 and stage-3 A fragments back with
+// plain 4-byte loads (the rows were just written by this block, so they
+// are in L1 or L2; the barrier between the stages orders the writes before
+// the reads), and shared memory holds only the ring.  Any Cm runs so, at
+// the cost of those reads; the shapes of VGGFace-ResNet50 (Cm <= 512) never
+// take this path.  ops/resblock.py holds the limits and decides each
+// launch (launch_plan: ring entries, cluster size, grid, which of the two
+// homes of y1 and y2); the entry point below checks and follows it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +91,8 @@ constexpr int kMaxSlots = 4;                 // ring entries
 constexpr int kMaxSmem = 232448;             // per block on H100
 static_assert(kQ % 16 == 0 && kP % 16 == 0, "tile must fill fragments");
 static_assert(kHW + kQ - 1 + kHW + 1 < kY1Rows, "3x3 reads past y1");
+constexpr int kActRows = kY1Rows + kP;       // a block's y1 and y2 rows
+                                             // in global scratch
 
 __host__ __device__ constexpr int align128(int b) { return (b + 127) / 128 * 128; }
 
@@ -89,10 +100,12 @@ struct Smem {
   int y2_at, ring_at, bars_at, total;   // full, empty, then y1/y2 ready
 };
 
-__host__ __device__ inline Smem smem_plan(int cm, int slots) {
+// `global_act`: y1 and y2 live in global scratch, shared memory holds the
+// ring and the barriers only.
+__host__ __device__ inline Smem smem_plan(int cm, int slots, bool global_act) {
   Smem m;
-  m.y2_at = align128(kY1Rows * cm * 2);
-  m.ring_at = m.y2_at + align128(kP * cm * 2);
+  m.y2_at = global_act ? 0 : align128(kY1Rows * cm * 2);
+  m.ring_at = global_act ? 0 : m.y2_at + align128(kP * cm * 2);
   m.bars_at = m.ring_at + slots * kEntry;
   m.total = m.bars_at + 16 * kMaxSlots + 16;
   return m;
@@ -250,9 +263,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Where a slab's A operand rows come from: the ring slot (x, 64-byte rows)
-// or y1 / y2 (Cm-wide rows; `shift` is the tap's row offset).
-enum ASource { kFromSlab, kFromAct };
+// Where a slab's A operand rows come from: the ring slot (x, 64-byte rows),
+// y1 / y2 in shared memory (Cm-wide rows; `shift` is the tap's row offset)
+// or y1 / y2 in the block's global scratch (Cm-wide rows, unswizzled).
+enum ASource { kFromSlab, kFromAct, kFromGlobal };
+
+// Two bf16 of the global scratch.  A plain load, not __ldg: this block
+// wrote the rows during this launch.
+__device__ __forceinline__ uint32_t ld_act(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
 
 // acc[m][j] += A rows [row0 + 16 m, +16) x B columns [wn + 8 j, +8) over
 // the 32 K rows of one slab, for m < MN, j < NF: no branch around a
@@ -261,7 +281,9 @@ template <int MN, int NF, ASource SRC>
 __device__ __forceinline__ void slab_mma(float (*acc)[4][4], uint32_t a_base,
                                          int row0, int shift, int pitch,
                                          int kc0, uint32_t b_base, int wn,
-                                         int lane) {
+                                         int lane,
+                                         const __nv_bfloat16* ga = nullptr,
+                                         int cm = 0) {
   // All of the slab's fragments first (two k16 steps), then the products.
   uint32_t b[2][NF][2];
   uint32_t a[2][MN][4];
@@ -283,8 +305,19 @@ __device__ __forceinline__ void slab_mma(float (*acc)[4][4], uint32_t a_base,
       const int c = kk * 2 + (lane >> 4);
       if constexpr (SRC == kFromSlab) {
         ldsm_x4(a_base + slab_off(row, c), a[kk][m]);
-      } else {
+      } else if constexpr (SRC == kFromAct) {
         ldsm_x4(a_base + act_off(row + shift, kc0 + c, pitch), a[kk][m]);
+      } else {
+        // The fragment ldmatrix would give: rows g and g + 8 of the 16,
+        // columns 2 t4, + 1 of the slice's two 8-column halves.
+        const int r0 = row0 + m * 16 + (lane >> 2) + shift;
+        const int k = (kc0 + kk * 2) * 8 + 2 * (lane & 3);
+        const __nv_bfloat16* lo = ga + static_cast<long long>(r0) * cm + k;
+        const __nv_bfloat16* hi = lo + 8LL * cm;
+        a[kk][m][0] = ld_act(lo);
+        a[kk][m][1] = ld_act(hi);
+        a[kk][m][2] = ld_act(lo + 8);
+        a[kk][m][3] = ld_act(hi + 8);
       }
     }
   }
@@ -302,6 +335,7 @@ struct Params {
   const __nv_bfloat16 *w1, *w3, *w2, *wp;    // packed (pack_bottleneck)
   const float *s1, *b1, *s2, *b2, *s3, *b3, *sp, *bp;
   __nv_bfloat16* out;
+  __nv_bfloat16* act;   // global y1/y2 scratch, kActRows x cm a block
   int slots, split;                          // ring entries, cluster size
 };
 
@@ -365,6 +399,7 @@ struct Cursor {
 struct Ctx {
   const Params& p;
   uint32_t y1s, y2s, ring, full, empty, ready;
+  __nv_bfloat16* gy1;   // this block's y1 rows in global scratch (or null)
   int pitch, slots, lane, gq, tq, wc, ty0, tx0;
   long long img_px;
   int lo12, hi12, lo3, hi3;
@@ -396,8 +431,13 @@ struct Ctx {
         if (q < p.split) st_cluster(map_rank(base + off, q), v);
     }
   }
+  // Store 2 bf16 at element `e` of this block's global y1/y2 scratch.
+  __device__ void put_global(long long e, uint32_t v) const {
+    *reinterpret_cast<uint32_t*>(gy1 + e) = v;
+  }
   // y1 (which 0) or y2 (1) complete in every consumer warp of the block,
-  // or of the cluster that shares the tile.
+  // or of the cluster that shares the tile (bar.sync also orders the
+  // block's global y1/y2 writes before its reads).
   __device__ void stage_done(int which) const {
     if (p.split == 1) {
       consumers_sync();
@@ -495,7 +535,7 @@ __device__ __forceinline__ void load_shortcut(const Ctx& c,
     }
 }
 
-template <int STAGE, int MN, int NF, bool PROJ>
+template <int STAGE, int MN, int NF, bool PROJ, bool GACT>
 __device__ __forceinline__ void epilogue(const Ctx& c,
                                          const float (&acc)[4][4][4],
                                          int col0, int m_lo,
@@ -528,16 +568,26 @@ __device__ __forceinline__ void epilogue(const Ctx& c,
           const bool valid = hy >= 0 && hy < p.h && hx >= 0 && hx < p.w;
           const float o0 = valid ? fmaxf(affine(v0, sc.x, sh.x), 0.0f) : 0.0f;
           const float o1 = valid ? fmaxf(affine(v1, sc.y, sh.y), 0.0f) : 0.0f;
-          c.put(c.y1s, act_off(1 + r, col / 8, c.pitch) + (col % 8) * 2,
-                pack_bf16(o0, o1));
+          if constexpr (GACT) {
+            c.put_global(static_cast<long long>(1 + r) * p.cm + col,
+                         pack_bf16(o0, o1));
+          } else {
+            c.put(c.y1s, act_off(1 + r, col / 8, c.pitch) + (col % 8) * 2,
+                  pack_bf16(o0, o1));
+          }
         } else if constexpr (STAGE == 2) {
           const int hc = r % kHW;            // flat row: halo row 1 + r / kHW
           if (hc < 1 || hc > kTW) continue;
           const int px = (r / kHW) * kTW + hc - 1;
           const float o0 = fmaxf(affine(v0, sc.x, sh.x), 0.0f);
           const float o1 = fmaxf(affine(v1, sc.y, sh.y), 0.0f);
-          c.put(c.y2s, act_off(px, col / 8, c.pitch) + (col % 8) * 2,
-                pack_bf16(o0, o1));
+          if constexpr (GACT) {
+            c.put_global(static_cast<long long>(kY1Rows + px) * p.cm + col,
+                         pack_bf16(o0, o1));
+          } else {
+            c.put(c.y2s, act_off(px, col / 8, c.pitch) + (col % 8) * 2,
+                  pack_bf16(o0, o1));
+          }
         } else {
           const float y0 = affine(v0, sc.x, sh.x);
           const float y1 = affine(v1, sc.y, sh.y);
@@ -586,11 +636,14 @@ __device__ __forceinline__ void epilogue(const Ctx& c,
 // A consumer warp's whole slab sequence, in the producer's order, with
 // its row fragments (MN1, MN2 from m_lo1, m_lo2; 2 from m_lo3) and the
 // pass widths (NF12 * 32, NF3 * 32) fixed: each stage is one straight
-// loop of products.
-template <int MN1, int MN2, int NF12, int NF3, bool PROJ>
+// loop of products.  GACT: y1 and y2 in global scratch.
+template <int MN1, int MN2, int NF12, int NF3, bool PROJ, bool GACT>
 __device__ __forceinline__ void consume(Ctx& c, float (&acc)[4][4][4],
                                         int m_lo1, int m_lo2, int m_lo3) {
   const Params& p = c.p;
+  constexpr ASource kAct = GACT ? kFromGlobal : kFromAct;
+  const __nv_bfloat16* gy2 =
+      GACT ? c.gy1 + static_cast<long long>(kY1Rows) * p.cm : nullptr;
   constexpr int np12 = NF12 * 32, np3 = NF3 * 32;
   const int wn12 = c.wc * (np12 / 4), wn3 = c.wc * (np3 / 4);
   uint32_t b, x;
@@ -603,7 +656,8 @@ __device__ __forceinline__ void consume(Ctx& c, float (&acc)[4][4][4],
                                      wn12, c.lane);
       c.release();
     }
-    epilogue<1, MN1, NF12, PROJ>(c, acc, pass * np12 + wn12, m_lo1, xs);
+    epilogue<1, MN1, NF12, PROJ, GACT>(c, acc, pass * np12 + wn12, m_lo1,
+                                       xs);
     zero_acc(acc);
   }
   c.stage_done(0);
@@ -615,12 +669,13 @@ __device__ __forceinline__ void consume(Ctx& c, float (&acc)[4][4][4],
       const int shift = (tap / 3) * kHW + tap % 3;
       for (int k0 = 0; k0 < p.cm; k0 += kKS) {
         c.acquire(b, x, np12);
-        slab_mma<MN2, NF12, kFromAct>(acc, c.y1s, m_lo2 * 16, shift, c.pitch,
-                                      k0 / 8, b, wn12, c.lane);
+        slab_mma<MN2, NF12, kAct>(acc, c.y1s, m_lo2 * 16, shift, c.pitch,
+                                  k0 / 8, b, wn12, c.lane, c.gy1, p.cm);
         c.release();
       }
     }
-    epilogue<2, MN2, NF12, PROJ>(c, acc, pass * np12 + wn12, m_lo2, xs);
+    epilogue<2, MN2, NF12, PROJ, GACT>(c, acc, pass * np12 + wn12, m_lo2,
+                                       xs);
     zero_acc(acc);
   }
   c.stage_done(1);
@@ -629,8 +684,8 @@ __device__ __forceinline__ void consume(Ctx& c, float (&acc)[4][4][4],
     if constexpr (!PROJ) load_shortcut<NF3>(c, xs, pass * np3 + wn3, m_lo3);
     for (int k0 = 0; k0 < p.cm; k0 += kKS) {
       c.acquire(b, x, np3);
-      slab_mma<2, NF3, kFromAct>(acc, c.y2s, m_lo3 * 16, 0, c.pitch, k0 / 8,
-                                 b, wn3, c.lane);
+      slab_mma<2, NF3, kAct>(acc, c.y2s, m_lo3 * 16, 0, c.pitch, k0 / 8,
+                             b, wn3, c.lane, gy2, p.cm);
       c.release();
     }
     if constexpr (PROJ) {
@@ -641,7 +696,7 @@ __device__ __forceinline__ void consume(Ctx& c, float (&acc)[4][4][4],
         c.release();
       }
     }
-    epilogue<3, 2, NF3, PROJ>(c, acc, pass * np3 + wn3, m_lo3, xs);
+    epilogue<3, 2, NF3, PROJ, GACT>(c, acc, pass * np3 + wn3, m_lo3, xs);
     zero_acc(acc);
   }
 }
@@ -660,11 +715,13 @@ __device__ __forceinline__ Tile tile_at(const Params& p, int tile) {
               static_cast<long long>(img) * p.h * p.w};
 }
 
-template <bool PROJ, int NF12, int NF3>
+// GACT: y1 and y2 in the global scratch p.act (a Cm too wide for shared
+// memory); otherwise in shared memory.
+template <bool PROJ, int NF12, int NF3, bool GACT>
 __global__ void __launch_bounds__(kThreads, 1)
 bottleneck_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm = smem_plan(p.cm, p.slots);
+  const Smem sm = smem_plan(p.cm, p.slots, GACT);
   const uint32_t sbase = smem_u32(smem);
   const uint32_t y1s = sbase;
   const uint32_t y2s = sbase + sm.y2_at;
@@ -696,10 +753,19 @@ bottleneck_kernel(const __grid_constant__ Params p) {
                     per3 * (p.cm / kKS + (PROJ ? p.cin / kKS : 0));
 
   // Guard rows of y1 (read only by dropped halo columns; kept finite).
+  __nv_bfloat16* gy1 =
+      GACT ? p.act + static_cast<long long>(blockIdx.x) * kActRows * p.cm
+           : nullptr;
   for (int e = tid; e < p.cm / 8; e += kThreads) {
-    *reinterpret_cast<uint4*>(smem + e * 16) = make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(smem + (kY1Rows - 1) * pitch + e * 16) =
-        make_uint4(0, 0, 0, 0);
+    if constexpr (GACT) {
+      *reinterpret_cast<uint4*>(gy1 + e * 8) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(gy1 + (kY1Rows - 1LL) * p.cm + e * 8) =
+          make_uint4(0, 0, 0, 0);
+    } else {
+      *reinterpret_cast<uint4*>(smem + e * 16) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(smem + (kY1Rows - 1) * pitch + e * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
   }
   // full[s]: the first producer thread's expect-tx arrival plus one
   // cp.async arrival per producer thread; empty[s]: one arrival per
@@ -796,7 +862,7 @@ bottleneck_kernel(const __grid_constant__ Params p) {
   // 0-1 for y3 and 2-3 for the projection's x . Wp.
   float acc[4][4][4];
   zero_acc(acc);
-  Ctx c{p,   y1s,  y2s,  ring, full, empty, ready, pitch,
+  Ctx c{p,   y1s,  y2s,  ring, full, empty, ready, gy1,  pitch,
         S,   lane, gq,   tq,   wc,   0,     0,     0,
         lo12, hi12, lo3, hi3, 0,    0,     0};
   // The ring runs on from one tile to the next.  y1 and y2 are rewritten
@@ -811,9 +877,9 @@ bottleneck_kernel(const __grid_constant__ Params p) {
     // Row fragments: stage 1 rows 0-3 / 4-6, stage 2 0-2 / 3-4, stage 3
     // 0-1 / 2-3 for the two warp rows.
     if (wr == 0) {
-      consume<4, 3, NF12, NF3, PROJ>(c, acc, 0, 0, 0);
+      consume<4, 3, NF12, NF3, PROJ, GACT>(c, acc, 0, 0, 0);
     } else {
-      consume<3, 2, NF12, NF3, PROJ>(c, acc, 4, 3, 2);
+      consume<3, 2, NF12, NF3, PROJ, GACT>(c, acc, 4, 3, 2);
     }
   }
 }
@@ -822,30 +888,35 @@ bottleneck_kernel(const __grid_constant__ Params p) {
 
 // x (n, h, w, cin) and out (n, h, w, cout): bf16 NHWC, contiguous.  w1, w3,
 // w2 and wp (null for the identity shortcut) are the packed copies of
-// ops/resblock.py:pack_bottleneck; s*/b*: f32 folded BN.  slots (ring
-// entries), split (blocks per tile, a cluster when > 1) and blocks (the
-// grid) are ops/resblock.py:launch_plan's: the wrapper decides the launch
-// and holds the limits (cin % 64, cm and cout 64 or a multiple of 128,
-// cm <= 512, identity needs cin == cout) and raises first; the checks here
-// only keep a call that breaks them from reading or writing out of bounds.
-// Returns cudaGetLastError() after the launch.
+// ops/resblock.py:pack_bottleneck; s*/b*: f32 folded BN.  act: null (y1
+// and y2 in shared memory), or a bf16 scratch of blocks x (102 + 64) x cm
+// for y1 and y2 (split 1).  slots (ring entries), split (blocks per tile, a
+// cluster when > 1), blocks (the grid) and act's use are
+// ops/resblock.py:launch_plan's: the wrapper decides the launch and holds
+// the limits (cin % 64, cm and cout 64 or a multiple of 128, identity
+// needs cin == cout) and raises first; the checks here only keep a call
+// that breaks them from reading or writing out of bounds.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int alink_bottleneck(const void* x, int n, int h, int w, int cin,
                                 int cm, int cout, const void* w1,
                                 const void* s1, const void* b1, const void* w3,
                                 const void* s2, const void* b2, const void* w2,
                                 const void* s3, const void* b3, const void* wp,
                                 const void* sp, const void* bp, void* out,
-                                int slots, int split, int blocks,
+                                void* act, int slots, int split, int blocks,
                                 void* stream) {
   auto width_ok = [](int c) { return c == 64 || (c > 0 && c % 128 == 0); };
   if (n < 0 || h <= 0 || w <= 0 || cin <= 0 || cin % (2 * kKS) || !width_ok(cm) ||
       !width_ok(cout) || (wp == nullptr && cin != cout)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (slots < 2 || slots > kMaxSlots || smem_plan(cm, slots).total > kMaxSmem) {
+  const bool gact = act != nullptr;
+  if (slots < 2 || slots > kMaxSlots ||
+      smem_plan(cm, slots, gact).total > kMaxSmem ||
+      (gact && split != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = smem_plan(cm, slots).total;
+  const int smem = smem_plan(cm, slots, gact).total;
   const int tiles_x = (w + kTW - 1) / kTW;
   const int tiles_per_img = tiles_x * ((h + kTH - 1) / kTH);
   const long long tiles = static_cast<long long>(n) * tiles_per_img;
@@ -864,16 +935,27 @@ extern "C" int alink_bottleneck(const void* x, int n, int h, int w, int cin,
   // Pass widths: 64 (2 fragments per warp) or 128 (4).
   void (*kernel)(Params) = nullptr;
   const bool wide12 = cm >= 128, wide3 = cout >= 128;
-  if (wp != nullptr) {
-    kernel = wide12 ? (wide3 ? bottleneck_kernel<true, 4, 4>
-                             : bottleneck_kernel<true, 4, 2>)
-                    : (wide3 ? bottleneck_kernel<true, 2, 4>
-                             : bottleneck_kernel<true, 2, 2>);
+  if (gact) {
+    // Only a Cm past what shared memory holds takes global y1/y2: 128-wide
+    // passes in stages 1 and 2.
+    if (!wide12) return static_cast<int>(cudaErrorInvalidValue);
+    if (wp != nullptr) {
+      kernel = wide3 ? bottleneck_kernel<true, 4, 4, true>
+                     : bottleneck_kernel<true, 4, 2, true>;
+    } else {
+      kernel = wide3 ? bottleneck_kernel<false, 4, 4, true>
+                     : bottleneck_kernel<false, 4, 2, true>;
+    }
+  } else if (wp != nullptr) {
+    kernel = wide12 ? (wide3 ? bottleneck_kernel<true, 4, 4, false>
+                             : bottleneck_kernel<true, 4, 2, false>)
+                    : (wide3 ? bottleneck_kernel<true, 2, 4, false>
+                             : bottleneck_kernel<true, 2, 2, false>);
   } else {
-    kernel = wide12 ? (wide3 ? bottleneck_kernel<false, 4, 4>
-                             : bottleneck_kernel<false, 4, 2>)
-                    : (wide3 ? bottleneck_kernel<false, 2, 4>
-                             : bottleneck_kernel<false, 2, 2>);
+    kernel = wide12 ? (wide3 ? bottleneck_kernel<false, 4, 4, false>
+                             : bottleneck_kernel<false, 4, 2, false>)
+                    : (wide3 ? bottleneck_kernel<false, 2, 4, false>
+                             : bottleneck_kernel<false, 2, 2, false>);
   }
   cudaError_t st = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -884,7 +966,8 @@ extern "C" int alink_bottleneck(const void* x, int n, int h, int w, int cin,
            static_cast<int>(tiles),
            bf(w1), bf(w3), bf(w2), bf(wp),
            f(s1), f(b1), f(s2), f(b2), f(s3), f(b3), f(sp), f(bp),
-           static_cast<__nv_bfloat16*>(out), slots, split};
+           static_cast<__nv_bfloat16*>(out),
+           static_cast<__nv_bfloat16*>(act), slots, split};
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = split;

@@ -47,6 +47,13 @@
 //     row tiles, column by column, so the tiles in flight share a few
 //     feature rows in L2.  The grid, ring depth and pass width come from
 //     ops/pairwise.py:launch_plan, which the entry point checks;
+//   - a head wider than 256 in H2 runs as chunks of at most 256 H2 columns,
+//     one launch each (ops/pairwise.py:head_chunks): the output layer is
+//     linear after the relu, so the logit difference is a sum over the
+//     chunks.  `mode` says which chunk a launch is: 0 the only one (the
+//     sigmoid in place), 1 the first (its logit difference, output bias
+//     included, stored as is), 2 a middle one (added to what `out` holds),
+//     3 the last (added, then the sigmoid).  Each chunk redoes layer 1;
 //   - wgmma reads its A registers until a wait retires it: each product is
 //     waited for (wait_group 1) before its registers are rebuilt, and kept
 //     live until then (keep4());
@@ -463,7 +470,8 @@ pair_score_kernel(const __grid_constant__ CUtensorMap lmap,
                   const float* __restrict__ b1,
                   const __nv_bfloat16* __restrict__ w2,
                   const float* __restrict__ b2, const float* __restrict__ wo,
-                  const float* __restrict__ bo, float* __restrict__ out) {
+                  const float* __restrict__ bo, float* __restrict__ out,
+                  int mode) {
   constexpr int kW1 = NP1 * kKS * 2;     // bytes of one slab of W1's pass
   constexpr int kW2 = NP1 * H2P * 2;     // bytes of one pass of W2
   constexpr int kStage = stage_bytes(NP1, H2P);
@@ -705,7 +713,8 @@ pair_score_kernel(const __grid_constant__ CUtensorMap lmap,
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const float z = (lg[hf][0] + bo0) - (lg[hf][1] + bo1);
-        scores[(hf ? il2 : il1) * kTJ + jr] = 1.0f / (1.0f + expf(z));
+        scores[(hf ? il2 : il1) * kTJ + jr] =
+            mode == 0 ? 1.0f / (1.0f + expf(z)) : z;
       }
     }
     // The warpgroup's 4 x 16 scores leave as rows of 64 bytes.
@@ -715,7 +724,11 @@ pair_score_kernel(const __grid_constant__ CUtensorMap lmap,
       const int il = 4 * wg + e / kTJ, jl = e % kTJ;
       const int i = ti * kTI + il, j = tj * kTJ + jl;
       if (i < n && j < m) {
-        out[static_cast<long long>(i) * m + j] = scores[il * kTJ + jl];
+        const long long o = static_cast<long long>(i) * m + j;
+        float v = scores[il * kTJ + jl];
+        if (mode >= 2) v += out[o];   // the earlier chunks' logit difference
+        if (mode == 3) v = 1.0f / (1.0f + expf(v));
+        out[o] = v;
       }
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -769,7 +782,7 @@ int launch(const void* rows, const void* cols, int n, int m, int d,
            const void* w1, const void* b1, int h1p, const void* w2,
            const void* b2, const void* wo, const void* bo, void* out,
            int stages, int grid, int group, int tiles_i, int tiles_j,
-           cudaStream_t stream) {
+           int mode, cudaStream_t stream) {
   const int smem = stages * stage_bytes(NP1, H2P) + kScoreBytes + kBarBytes +
                    stash_bytes(NP1, H2P);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -789,7 +802,7 @@ int launch(const void* rows, const void* cols, int n, int m, int d,
       group, stages, static_cast<const __nv_bfloat16*>(w1),
       static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(wo),
-      static_cast<const float*>(bo), static_cast<float*>(out));
+      static_cast<const float*>(bo), static_cast<float*>(out), mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,7 +815,10 @@ int launch(const void* rows, const void* cols, int n, int m, int d,
 // stages, grid and group are ops/pairwise.py:launch_plan's: the wrapper
 // decides the launch; this checks that the pass and H2 widths are ones the
 // kernel is built for, that the ring fits and that the grid walks every
-// tile.  Returns cudaGetLastError() after the launch, or
+// tile.  mode: 0 a whole head, 1-3 the first, a middle and the last chunk
+// of a head split in H2 (ops/pairwise.py:head_chunks; modes 2 and 3 read
+// `out` as the earlier chunks left it).  Returns cudaGetLastError() after
+// the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take (the
 // wrapper raises first).
 extern "C" int alink_pair_score(const void* rows, const void* cols, int n,
@@ -810,8 +826,8 @@ extern "C" int alink_pair_score(const void* rows, const void* cols, int n,
                                 int h1p, const void* w2, const void* b2,
                                 int h2p, const void* wo, const void* bo,
                                 void* out, int np1, int stages, int grid,
-                                int group, void* stream) {
-  if (n < 0 || m < 0 || d <= 0 || d % 4 ||
+                                int group, int mode, void* stream) {
+  if (n < 0 || m < 0 || d <= 0 || d % 4 || mode < 0 || mode > 3 ||
       reinterpret_cast<uintptr_t>(rows) % 16 ||
       reinterpret_cast<uintptr_t>(cols) % 16 || np1 <= 0 || h1p <= 0 ||
       h1p % np1 || stages < 2 || stages > kMaxStages || group < 1) {
@@ -828,7 +844,7 @@ extern "C" int alink_pair_score(const void* rows, const void* cols, int n,
 #define ALINK_PAIR_LAUNCH(NP, HP)                                            \
   if (np1 == NP && h2p == HP)                                                \
     return launch<NP, HP>(rows, cols, n, m, d, w1, b1, h1p, w2, b2, wo, bo,  \
-                          out, stages, grid, group, ti, tj, s);
+                          out, stages, grid, group, ti, tj, mode, s);
   ALINK_PAIR_LAUNCH(256, 32)
   ALINK_PAIR_LAUNCH(256, 64)
   ALINK_PAIR_LAUNCH(128, 32)

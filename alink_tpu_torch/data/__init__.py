@@ -9,8 +9,10 @@ from alink_tpu_torch.data.manifest import DFWPerson, lookup_file, scan_dfw
 from alink_tpu_torch.data.pairs import (all_pairs_index,
                                         balanced_pair_batches,
                                         split_disguise_data)
-from alink_tpu_torch.data.synth import make_synthetic_dfw
+from alink_tpu_torch.data.synth import (dfw_test_mask, make_synthetic_dfw,
+                                        make_synthetic_dfw_test)
 
 __all__ = ["PersonStacks", "load_person_stacks", "DFWPerson", "lookup_file",
            "scan_dfw", "all_pairs_index", "balanced_pair_batches",
-           "split_disguise_data", "make_synthetic_dfw"]
+           "split_disguise_data", "make_synthetic_dfw",
+           "make_synthetic_dfw_test", "dfw_test_mask"]

@@ -79,15 +79,6 @@ def make_adversarial_predict(featurize):
     return predict
 
 
-def _device(device) -> torch.device:
-    """``device`` as asked; a CUDA device must exist (no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_alink: no CUDA device; pass device='cpu' "
-                           "(--device cpu) to run on the CPU")
-    return dev
-
-
 def run_alink(config: ALinkConfig, *, featurize=None,
               n_steps: int | None = None, device="cuda",
               generator: torch.Generator | None = None) -> ALinkState:
@@ -101,7 +92,7 @@ def run_alink(config: ALinkConfig, *, featurize=None,
     """
     if config.max_restarts > 0:
         raise NotImplementedError(NOT_PORTED.format("max_restarts"))
-    device = _device(device)
+    device = common.resolve_device(device, "run_alink")
     if n_steps is None:
         n_steps = config.train_steps
     g = generator if generator is not None else \

@@ -23,6 +23,15 @@ from alink_tpu_torch.train.ensemble import (EnsembleState,
                                             train_ensemble)
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as asked; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    return dev
+
+
 @dataclasses.dataclass
 class DFWData:
     """Featurized + raw DFW person stacks (host numpy arrays)."""

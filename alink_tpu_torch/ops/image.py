@@ -125,11 +125,16 @@ def affine_warp_batch_reference(
     return _cast_like(out, imgs.dtype)
 
 
+# The kernel's dtype codes (``alink_affine_warp``).
+_WARP_DTYPES = {torch.float32: 0, torch.uint8: 1, torch.bfloat16: 2}
+
+
 def affine_warp_batch_kernel(
     imgs: torch.Tensor, Ms: torch.Tensor, out_size: tuple[int, int],
     border: str = "zero", interp: str = "linear",
 ) -> torch.Tensor:
-    """Launch ``csrc/affine_warp.cu`` on CUDA tensors (f32 or uint8 NHWC).
+    """Launch ``csrc/affine_warp.cu`` on CUDA tensors (f32, uint8 or bf16
+    NHWC; taps and blend in f32, the result rounded to the input's type).
 
     The kernel inverts the forward affines itself (rounded as
     ``_warp_params`` rounds them), so a call launches nothing else when
@@ -138,8 +143,9 @@ def affine_warp_batch_kernel(
     """
     if not imgs.is_cuda:
         raise ValueError("affine_warp_batch_kernel needs a CUDA tensor")
-    if imgs.dtype not in (torch.float32, torch.uint8):
-        raise TypeError(f"warp kernel takes float32 or uint8, not {imgs.dtype}")
+    if imgs.dtype not in _WARP_DTYPES:
+        raise TypeError(f"warp kernel takes float32, uint8 or bfloat16, not "
+                        f"{imgs.dtype}")
     if border not in ("zero", "nearest") or interp not in ("linear",
                                                            "nearest"):
         raise ValueError(f"unknown border={border!r} or interp={interp!r}")
@@ -155,7 +161,7 @@ def affine_warp_batch_kernel(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.alink_affine_warp(
-            imgs.data_ptr(), int(imgs.dtype == torch.uint8), Ms.data_ptr(),
+            imgs.data_ptr(), _WARP_DTYPES[imgs.dtype], Ms.data_ptr(),
             out.data_ptr(), n, h, w, c, oh, ow, int(border == "nearest"),
             int(interp == "nearest"), stream)
     affine_warp_batch_kernel.launches += 1

@@ -11,8 +11,10 @@ rounded to bf16 and products accumulate in f32, as in the JAX package.
   (replaces the TPU kernel ``alink_tpu/ops/pairwise.py:_fused_kernel``),
   on the head's weights packed once (``pack_head``, cached on the head by
   ``packed_head``) with a launch decided here (``launch_plan``).
-- ``score_matrix``           — dispatcher: the kernel for a two-hidden-layer
-  head on CUDA tensors, the plain version otherwise.
+- ``score_matrix``           — dispatcher: the kernel for every
+  two-hidden-layer head on CUDA tensors (any H1 and D; an H2 over 256 runs
+  as chunks of 256 columns, ``head_chunks``), the plain version for other
+  heads and on the CPU.
 
 The mesh-sharded grid (``score_matrix_sharded``) is not ported yet.
 """
@@ -109,15 +111,37 @@ def _rup(x: int, m: int) -> int:
 
 def head_tiling(h1: int, h2: int) -> tuple[int, int, int]:
     """(np1, h2p, h1p): the H1 pass width, the padded H2 and the padded H1
-    the kernel runs a head at.  A consumer warpgroup holds np1 / 2 + h2p / 2
-    f32 accumulators a thread (at most 160): passes of 256 columns where H2
-    pads to 64 or less, 128 at 128, 64 at 256."""
+    one launch of the kernel runs at (a head, or one chunk of a head wider
+    than 256 in H2, ``head_chunks``).  A consumer warpgroup holds np1 / 2 +
+    h2p / 2 f32 accumulators a thread (at most 160): passes of 256 columns
+    where H2 pads to 64 or less, 128 at 128, 64 at 256."""
     if not 0 < h2 <= _H2_WIDTHS[-1] or h1 <= 0:
-        raise ValueError(f"fused scorer takes 0 < H2 <= {_H2_WIDTHS[-1]}; "
-                         f"got head widths ({h1}, {h2})")
+        raise ValueError(f"one launch of the fused scorer takes 0 < H2 <= "
+                         f"{_H2_WIDTHS[-1]} (wider heads run in chunks, "
+                         f"head_chunks); got head widths ({h1}, {h2})")
     h2p = next(c for c in _H2_WIDTHS if c >= h2)
     np1 = 64 if h2p == 256 else 128 if (h2p == 128 or h1 <= 128) else 256
     return np1, h2p, _rup(h1, np1)
+
+
+def head_chunks(h2: int) -> tuple[tuple[int, int], ...]:
+    """The H2 column ranges [c0, c1) a head runs as, one launch each: the
+    whole head up to 256, else chunks of 256 and the rest.  The output layer
+    is linear after the relu, so the logit difference is the sum of the
+    chunks' (the output bias in the first only)."""
+    if h2 <= 0:
+        raise ValueError(f"H2 must be positive, got {h2}")
+    w = _H2_WIDTHS[-1]
+    return tuple((c, min(c + w, h2)) for c in range(0, h2, w))
+
+
+def chunk_mode(k: int, chunks: int) -> int:
+    """The kernel's ``mode`` for launch k of ``chunks``: 0 a whole head; 1
+    the first chunk (stores its logit difference), 2 a middle one (adds its
+    own), 3 the last (adds, then the sigmoid)."""
+    if chunks == 1:
+        return 0
+    return 1 if k == 0 else 3 if k == chunks - 1 else 2
 
 
 class HeadPacked(NamedTuple):
@@ -147,14 +171,21 @@ class HeadPacked(NamedTuple):
 
 
 @torch.no_grad()
-def pack_head(head, device=None) -> HeadPacked:
+def pack_head(head, device=None, cols: tuple[int, int] | None = None
+              ) -> HeadPacked:
     """The weights of a two-hidden-layer ``SiameseHead`` in the kernel's
-    layout (``HeadPacked``) on ``device``."""
+    layout (``HeadPacked``) on ``device``: with ``cols`` = (c0, c1), only
+    H2 columns c0..c1 (at most 256; ``head_chunks``), the output bias kept
+    in the first chunk only."""
     layers = head_weights(head)
     if len(layers) != 3:
         raise ValueError("the fused scorer takes 2 hidden layers + output")
     (w1, b1), (w2, b2), (wo, bo) = ((w.detach().float(), b.detach().float())
                                     for w, b in layers)
+    if cols is not None:
+        c0, c1 = cols
+        w2, b2, wo = w2[:, c0:c1], b2[c0:c1], wo[c0:c1]
+        bo = bo if c0 == 0 else torch.zeros_like(bo)
     d, h1 = w1.shape
     h2 = w2.shape[1]
     np1, h2p, h1p = head_tiling(h1, h2)
@@ -173,10 +204,19 @@ def pack_head(head, device=None) -> HeadPacked:
         bo.to(device).contiguous(), d, h1, h2, np1, h2p)
 
 
-def unpack_head(p: HeadPacked) -> tuple[tuple[torch.Tensor, torch.Tensor],
-                                        ...]:
+def unpack_head(p) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
     """``pack_head``'s inverse: ((W1, b1), (W2, b2), (Wo, bo)) f32 at the
-    head's widths (the matrices as the kernel reads them, bf16-rounded)."""
+    head's widths (the matrices as the kernel reads them, bf16-rounded).
+    Takes one ``HeadPacked`` or the chunks of a head (``packed_head``),
+    whose H2 columns it joins and whose output biases it sums."""
+    if not isinstance(p, HeadPacked):
+        parts = [unpack_head(c) for c in p]
+        (w1, b1), _, (_, bo) = parts[0]
+        return ((w1, b1),
+                (torch.cat([q[1][0] for q in parts], 1),
+                 torch.cat([q[1][1] for q in parts])),
+                (torch.cat([q[2][0] for q in parts]),
+                 sum(q[2][1] for q in parts[1:]) + bo))
     passes, nslab = p.w1.shape[:2]
     h1p, dp = passes * p.np1, nslab * _KS
     t = p.w1.float().permute(1, 2, 4, 6, 0, 3, 5).reshape(dp // 16, 16, h1p)
@@ -187,11 +227,13 @@ def unpack_head(p: HeadPacked) -> tuple[tuple[torch.Tensor, torch.Tensor],
             (w2[:p.h1, :p.h2], p.b2[:p.h2]), (p.wo[:p.h2], p.bo))
 
 
-def packed_head(head, device) -> HeadPacked:
-    """``pack_head(head, device)``, cached on the head.  The head is trained
-    in place (an optimizer step, ``load_state_dict``), so the cache is keyed
-    on each parameter's identity and in-place version counter; moving the
-    module (``SiameseHead._apply``) drops it."""
+def packed_head(head, device) -> tuple[HeadPacked, ...]:
+    """The head packed for the kernel on ``device``, one ``HeadPacked`` per
+    H2 chunk (``head_chunks``; one for a head up to 256 wide), cached on
+    the head.  The head is trained in place (an optimizer step,
+    ``load_state_dict``), so the cache is keyed on each parameter's
+    identity and in-place version counter; moving the module
+    (``SiameseHead._apply``) drops it."""
     device = torch.device(device)
     params = [p for lin in (*head.hidden, head.out)
               for p in (lin.weight, lin.bias)]
@@ -200,7 +242,9 @@ def packed_head(head, device) -> HeadPacked:
     if (cached is None or cached[0] != device or len(cached[1]) != len(key)
             or any(a is not b or va != vb
                    for (a, va), (b, vb) in zip(cached[1], key))):
-        cached = (device, key, pack_head(head, device))
+        h2 = head.hidden[-1].weight.shape[0]
+        cached = (device, key, tuple(pack_head(head, device, c)
+                                     for c in head_chunks(h2)))
         head._packed = cached
     return cached[2]
 
@@ -270,8 +314,10 @@ def score_matrix_kernel(head, rows: torch.Tensor,
                         cols: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/pair_score.cu`` on CUDA tensors.
 
-    Takes two-hidden-layer heads with H2 <= 256 and any H1 and D; the
-    head's weights are packed once and cached on it (``packed_head``).
+    Takes every two-hidden-layer head, any H1, H2 and D: a head up to 256
+    wide in H2 is one launch, a wider one a launch per chunk of 256
+    (``head_chunks``; the chunks' logit differences sum in the output).
+    The head's weights are packed once and cached on it (``packed_head``).
     ``score_matrix_kernel.launches`` counts the launches.
     """
     if not (rows.is_cuda and cols.is_cuda):
@@ -279,30 +325,31 @@ def score_matrix_kernel(head, rows: torch.Tensor,
     n, d = rows.shape
     m = cols.shape[0]
     dev = rows.device
-    pk = packed_head(head, dev)
-    if cols.shape[1] != d or pk.d != d:
+    chunks = packed_head(head, dev)
+    if cols.shape[1] != d or chunks[0].d != d:
         raise ValueError(f"feature widths differ: rows {d}, cols "
-                         f"{cols.shape[1]}, head {pk.d}")
+                         f"{cols.shape[1]}, head {chunks[0].d}")
     # The kernel reads the features by TMA: f32 rows of 16-byte multiples.
     d4 = _rup(d, 4)
     rows, cols = (t if t.dtype == torch.float32 and t.is_contiguous()
                   and d4 == d and t.data_ptr() % 16 == 0 else
                   F.pad(t.to(dev, torch.float32), (0, d4 - d)).contiguous()
                   for t in (rows, cols))
-    plan = launch_plan(n, m, d4, pk.h1, pk.h2,
-                       torch.cuda.get_device_properties(dev)
-                       .multi_processor_count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.alink_pair_score(
-            rows.data_ptr(), cols.data_ptr(), n, m, d4, pk.w1.data_ptr(),
-            pk.b1.data_ptr(), plan.h1p, pk.w2.data_ptr(), pk.b2.data_ptr(),
-            plan.h2p, pk.wo.data_ptr(), pk.bo.data_ptr(), out.data_ptr(),
-            plan.np1, plan.stages, plan.grid, plan.group, stream)
-    score_matrix_kernel.launches += 1
-    _build.check(status, "pair_score")
+    for k, pk in enumerate(chunks):
+        plan = launch_plan(n, m, d4, pk.h1, pk.h2, sms)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = lib.alink_pair_score(
+                rows.data_ptr(), cols.data_ptr(), n, m, d4, pk.w1.data_ptr(),
+                pk.b1.data_ptr(), plan.h1p, pk.w2.data_ptr(),
+                pk.b2.data_ptr(), plan.h2p, pk.wo.data_ptr(),
+                pk.bo.data_ptr(), out.data_ptr(), plan.np1, plan.stages,
+                plan.grid, plan.group, chunk_mode(k, len(chunks)), stream)
+        score_matrix_kernel.launches += 1
+        _build.check(status, "pair_score")
     return out
 
 
@@ -310,8 +357,9 @@ score_matrix_kernel.launches = 0
 
 
 def score_matrix(head, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """All-pairs P(genuine): the fused kernel for a two-hidden-layer head on
-    CUDA tensors, the plain version for other heads and on the CPU."""
+    """All-pairs P(genuine): the fused kernel for every two-hidden-layer
+    head on CUDA tensors (any widths), the plain version for other heads
+    and on the CPU."""
     if rows.is_cuda and len(head.hidden) == 2:
         return score_matrix_kernel(head, rows, cols)
     if rows.device.type not in ("cpu", "cuda"):

@@ -149,17 +149,16 @@ def _block_plain(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
 
 # Widths of csrc/bottleneck.cu: x is staged in pairs of 32-channel slabs
 # (Cin % 64), the weights in passes of 128 output columns or one pass of 64
-# (Cm and Cout 64 or a multiple of 128), and y1 (102 rows) plus y2 (64 rows)
-# of Cm bf16 channels and a ring of at least 2 30 KB entries must fit the
-# 227 KB of shared memory a block can have on an H100, which bounds Cm at
-# 512.  Other widths run zero-padded, as the TPU kernel pads every width
-# to 128 lanes: ``pad_bottleneck`` pads Cin, Cm and Cout to ``padded_width``
-# (Cin too, so that a block's padded output is the next block's padded
-# input and an identity shortcut pads Cin and Cout alike).  A Cm whose
-# padded width passes 512 (the TPU kernel takes 576) still raises: it needs
-# y1 kept only a pass wide, a redesign of the kernel (ROADMAP.md).
+# (Cm and Cout 64 or a multiple of 128).  Other widths run zero-padded, as
+# the TPU kernel pads every width to 128 lanes: ``pad_bottleneck`` pads
+# Cin, Cm and Cout to ``padded_width`` (Cin too, so that a block's padded
+# output is the next block's padded input and an identity shortcut pads
+# Cin and Cout alike).  y1 (102 rows) and y2 (64 rows) of Cm bf16 channels
+# live in shared memory beside a ring of at least 2 30 KB entries while
+# they fit the 227 KB a block can have on an H100 (Cm <= 512); a wider Cm
+# keeps them in a global scratch, one region per block of a persistent
+# grid (``launch_plan``'s ``global_act``), so every width runs.
 _KS = 32
-_MAX_CM = 512
 
 
 def padded_width(c: int) -> int:
@@ -169,7 +168,9 @@ def padded_width(c: int) -> int:
 
 
 def kernel_takes(cin: int, cm: int, cout: int) -> bool:
-    return min(cin, cm, cout) > 0 and padded_width(cm) <= _MAX_CM
+    """Whether the kernel runs a block of these widths: every positive
+    width (zero-padded, y1 and y2 in global scratch past Cm 512)."""
+    return min(cin, cm, cout) > 0
 
 
 def _pass_width(n: int) -> int:
@@ -260,10 +261,14 @@ def pad_bottleneck(wts: BottleneckWeights) -> BottleneckWeights:
 # <= 128) and outnumber the SMs.  y1 on the tile's 10 x 10 halo (plus a
 # guard row before and a row after), y2 on its 64 pixels, and a ring of
 # 2-4 entries, each two consecutive slabs (8 KB of weights and 7 KB of x).
-# ``launch_plan`` decides each launch and the wrapper passes its ring depth,
-# cluster size and grid to the kernel's entry point, which checks them.
+# Where y1 and y2 do not fit beside a 2-entry ring, they live in a global
+# scratch of ``_ACT_ROWS`` x Cm bf16 per block, and the grid is one
+# persistent block per SM.  ``launch_plan`` decides each launch and the
+# wrapper passes its ring depth, cluster size, grid and scratch to the
+# kernel's entry point, which checks them.
 _TILE = 8
 _Y1_ROWS = 2 + (_TILE + 2) ** 2
+_ACT_ROWS = _Y1_ROWS + _TILE * _TILE
 _ENTRY = 2 * (128 * _KS * 2 + 112 * _KS * 2)
 _MAX_SLOTS = 4
 _MAX_SMEM = 232448
@@ -282,6 +287,7 @@ class BottleneckPlan(NamedTuple):
     blocks: int             # tiles * split, or one per SM (persistent)
     slots: int              # ring entries
     smem: int               # dynamic shared memory per block (bytes)
+    global_act: bool        # y1 and y2 in global scratch (a wide Cm)
     # The slab sequence of the block of each rank in a cluster:
     # (stage, pass, tap, k0, proj, last of its pass).
     schedule: tuple[tuple[tuple[int, int, int, int, bool, bool], ...], ...]
@@ -291,9 +297,10 @@ def _a128(b: int) -> int:
     return -(-b // 128) * 128
 
 
-def _smem(cm: int, slots: int) -> int:
-    return (_a128(_Y1_ROWS * cm * 2) + _a128(_TILE * _TILE * cm * 2)
-            + slots * _ENTRY + 16 * _MAX_SLOTS + 16)
+def _smem(cm: int, slots: int, global_act: bool = False) -> int:
+    act = 0 if global_act else (_a128(_Y1_ROWS * cm * 2)
+                                + _a128(_TILE * _TILE * cm * 2))
+    return act + slots * _ENTRY + 16 * _MAX_SLOTS + 16
 
 
 def _schedule(cin: int, cm: int, cout: int, proj: bool, passes12: range,
@@ -318,27 +325,29 @@ def _schedule(cin: int, cm: int, cout: int, proj: bool, passes12: range,
 @functools.lru_cache(maxsize=256)
 def launch_plan(n: int, h: int, w: int, cin: int, cm: int, cout: int,
                 proj: bool, sms: int = _SMS) -> BottleneckPlan:
-    """The kernel's grid, cluster size, ring depth and slab schedules for
-    one launch on a card of ``sms`` SMs (the wrapper passes the card's
-    count); block b walks tiles b, b + blocks / split, ..."""
-    fits = [s for s in range(_MAX_SLOTS, 1, -1) if _smem(cm, s) <= _MAX_SMEM]
-    if not fits:
-        raise ValueError(f"bottleneck kernel: Cm {cm} does not fit shared "
-                         "memory")
+    """The kernel's grid, cluster size, ring depth, home of y1 and y2 and
+    slab schedules for one launch on a card of ``sms`` SMs (the wrapper
+    passes the card's count); block b walks tiles b, b + blocks / split,
+    ...  A Cm whose y1 and y2 do not fit shared memory beside a 2-entry
+    ring keeps them in global scratch, on one persistent block per SM."""
+    global_act = _smem(cm, 2) > _MAX_SMEM
+    fits = [s for s in range(_MAX_SLOTS, 1, -1)
+            if _smem(cm, s, global_act) <= _MAX_SMEM]
     tx, ty = -(-w // _TILE), -(-h // _TILE)
     tiles = n * tx * ty
     p12, p3 = cm // _pass_width(cm), cout // _pass_width(cout)
-    split = next((k for k in (4, 2) if p12 % k == 0 and p3 % k == 0
-                  and tiles * k <= sms), 1)
+    split = 1 if global_act else next(
+        (k for k in (4, 2) if p12 % k == 0 and p3 % k == 0
+         and tiles * k <= sms), 1)
     per12, per3 = p12 // split, p3 // split
     sched = tuple(_schedule(cin, cm, cout, proj,
                             range(r * per12, (r + 1) * per12),
                             range(r * per3, (r + 1) * per3))
                   for r in range(split))
-    persistent = split == 1 and cm <= 128 and tiles > sms
+    persistent = split == 1 and (cm <= 128 or global_act) and tiles > sms
     return BottleneckPlan(tx, ty, tiles, split,
                           sms if persistent else tiles * split, fits[0],
-                          _smem(cm, fits[0]), sched)
+                          _smem(cm, fits[0], global_act), global_act, sched)
 
 
 @torch.no_grad()
@@ -409,9 +418,10 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     """Launch ``csrc/bottleneck.cu`` on a CUDA tensor (N, H, W, C), with
     ``wts`` from ``kernel_weights`` on the same device.
 
-    Takes any Cin, Cm and Cout with ``padded_width(Cm) <= 512``, run at
-    their padded widths; C is Cin, or Cin's padded width with zeros in the
-    pad channels (a padded output of this function).  The output is
+    Takes any Cin, Cm and Cout, run at their padded widths (y1 and y2 in
+    a global scratch this function allocates where the padded Cm passes
+    512); C is Cin, or Cin's padded width with zeros in the pad channels (a
+    padded output of this function).  The output is
     (N, H, W, Cout) bf16, or (N, H, W, padded Cout) with ``keep_padded``.
     ``bottleneck_s1_kernel.launches`` counts the launches.
     """
@@ -424,18 +434,12 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
                          f"w2 {tuple(wts.w2.shape)}")
     if wts.wp is None and cin != cout:
         raise ValueError("identity shortcut requires Cin == Cout")
-    if not kernel_takes(cin, cm, cout):
-        raise ValueError(
-            f"bottleneck kernel: Cm {cm} pads to {padded_width(cm)} > "
-            f"{_MAX_CM}; y1 and y2 of a tile at that width overflow shared "
-            "memory (a Cm over 512 needs y1 kept only a pass wide: not done "
-            "yet, ROADMAP.md)")
-    if not x.is_cuda:
-        raise ValueError("bottleneck_s1_kernel needs a CUDA tensor")
     cin_p, cm_p, cout_p = (padded_width(v) for v in (cin, cm, cout))
     if c not in (cin, cin_p):
         raise ValueError(f"bottleneck weights do not chain: x has {c} "
                          f"channels, w1 {tuple(wts.w1.shape)}")
+    if not x.is_cuda:
+        raise ValueError("bottleneck_s1_kernel needs a CUDA tensor")
     dev = x.device
     _check_kernel_layout(wts, dev)
     _check_packed(wts, dev)
@@ -446,6 +450,8 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     if c < cin_p:
         x = F.pad(x, (0, cin_p - c))
     out = torch.empty((n, h, w, cout_p), dtype=torch.bfloat16, device=dev)
+    act = (torch.empty((plan.blocks, _ACT_ROWS, cm_p), dtype=torch.bfloat16,
+                       device=dev) if plan.global_act else None)
     pk, v = wts.packed, wts.vecs
     ptrs = [None if t is None else t.data_ptr() for t in
             (pk.w1, v.s1, v.b1, pk.w3, v.s2, v.b2, pk.w2, v.s3, v.b3, pk.wp,
@@ -455,6 +461,7 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.alink_bottleneck(x.data_ptr(), n, h, w, cin_p, cm_p,
                                       cout_p, *ptrs, out.data_ptr(),
+                                      None if act is None else act.data_ptr(),
                                       plan.slots, plan.split, plan.blocks,
                                       stream)
     bottleneck_s1_kernel.launches += 1

@@ -96,7 +96,8 @@ def _same(got: torch.Tensor, want: torch.Tensor, exact: bool) -> bool:
         (got - want).abs().max()) <= 1e-2 * float(want.abs().max())
 
 
-def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True) -> float:
+def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True,
+             per_call: int = 1) -> float:
     """Device milliseconds per call: ``calls`` calls of ``fn`` (which returns
     a tensor) captured in one CUDA graph and replayed back to back
     (``cuda_ms`` around the replay), so that the host's work per call (the
@@ -104,8 +105,9 @@ def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True) -> float:
     the gaps between them.
 
     Raises unless the graph runs the work: ``counter`` (a kernel wrapper,
-    whose ``launches`` counts its launches) must rise by ``calls`` during
-    the capture, and one replay must rewrite the last call's output, filled
+    whose ``launches`` counts its launches) must rise by ``per_call`` x
+    ``calls`` during the capture (``per_call``: the launches of one call,
+    e.g. a chain of blocks or a head in H2 chunks), and one replay must rewrite the last call's output, filled
     with a sentinel first, to what an eager call gives (bit-equal when
     ``exact``, else within 1e-2 of its largest magnitude)."""
     side = torch.cuda.Stream()
@@ -121,10 +123,10 @@ def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             got = fn()
-    if counter is not None and counter.launches - before != calls:
+    if counter is not None and counter.launches - before != per_call * calls:
         raise RuntimeError(f"graph_ms: {counter.__name__} launched "
                            f"{counter.launches - before} times in a capture "
-                           f"of {calls} calls")
+                           f"of {calls} calls of {per_call}")
     got.fill_(float("nan") if got.is_floating_point() else 77)
     graph.replay()
     torch.cuda.synchronize()
@@ -136,13 +138,14 @@ def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True) -> float:
     return ms
 
 
-def kernel_ms(fn, counter, calls: int = 20) -> tuple[float, float]:
+def kernel_ms(fn, counter, calls: int = 20,
+              per_call: int = 1) -> tuple[float, float]:
     """(device ms per call, ``graph_ms`` over ``calls`` captured calls; ms
     per call from Python, ``cuda_ms``) of a kernel wrapper's call ``fn``.
     Raises where the device time is below a hundredth of the time per call
     from Python, which no kernel launched from Python reaches: a capture
     that timed nothing."""
-    ms = graph_ms(fn, calls=calls, counter=counter)
+    ms = graph_ms(fn, calls=calls, counter=counter, per_call=per_call)
     call = cuda_ms(fn, iters=calls, warmup=min(3, calls))
     if ms * 100 < call:
         raise RuntimeError(f"kernel_ms: {counter.__name__} {ms:.6f} ms on the "

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths, the A2 channel and the
-int8 conv once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths, the A2 channel, the
+int8 conv and the DFW evaluation chain once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,10 @@ a. device and build: require CUDA, print the card's name and power limit
    (``nvidia-smi``), build the CUDA kernels from ``alink_tpu_torch/csrc``;
 b. K1 and K2 against their plain PyTorch versions on the card: K1 on
    dyadic data (limit 1e-5) at D 512 and 2,048 under heads (512, 64) and
-   (128, 32), softmax and sigmoid, at H1 1,024, and on ragged grids; K2 in
-   16 border / interpolation / dtype / extreme-transform cases; with
+   (128, 32), softmax and sigmoid, at H1 1,024, on ragged grids, and under
+   the wide heads (512, 512) and (1024, 320) (a launch per 256 H2 columns,
+   timed beside their bound); K2 in 24 border / interpolation / dtype
+   (f32, uint8, bf16) / extreme-transform cases; with
    CUDA-event times of both (the kernel's as device time,
    ``bench_kernels.graph_ms``, whose capture is checked to have run the
    kernel, and per call from Python), K1 at 1000 x 1000 pairs of 512-d and
@@ -32,7 +34,9 @@ e. K3 (fused stride-1 bottleneck) against its plain version at the five
    7x7, persistent blocks, one block per tile): on dyadic data (exact,
    limit 1e-6) and float data (relative 1e-2), and a chain of two blocks
    at widths the kernel runs zero-padded (32 -> 80 -> 200, 200 -> 48 ->
-   200; dyadic, exact); then
+   200; dyadic, exact), and at Cm 576 and 1,024 (y1 and y2 in global
+   scratch): each block exact on dyadic data, a two-block chain held to
+   the float limit and timed; then
    the device time of the launch alone (``bench_kernels.graph_ms``: calls
    captured in a CUDA graph and replayed; the time per call from Python
    beside it) per shape and over the 13 blocks of one forward at batch 32
@@ -68,7 +72,16 @@ h. K4 (int8 3x3 conv on the flat layout) on its op path at the five
    time, ``graph_ms``, and per call from Python), the op path call
    (packing included), plain and bf16 ``F.conv2d`` (``graph_ms``) ms,
    useful TOPS and the bound of the unpadded problem (Cin and Cout as they
-   are, pixel rows only).
+   are, pixel rows only);
+i. the DFW evaluation chain: ``tools.evaluate --prefix`` on a synthetic
+   DFW test protocol at 224^2 (1,029 faces; DFW's list has 7,771) with
+   VGGFace-ResNet50 and ``SiameseHead`` (512, 64), K1's and K3's counters
+   zeroed just before and read just after, the grid held to the plain
+   version; the DFW-size evaluation (7,770^2 x 2,048 grid, split + sweep
+   and stats of the three ROC cases) timed by step as "DFW evaluation s";
+   ``eval_regression`` on ``EVAL_r05.json``'s protocol with its stage
+   AUC / EER and 15 ordering flags beside the file's (a flag that differs
+   is reported, not hidden).
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -120,13 +133,13 @@ def graph_ms(fn) -> float:
     return timed(fn, exact=False)
 
 
-def kernel_ms(fn, counter) -> tuple[float, float]:
+def kernel_ms(fn, counter, per_call: int = 1) -> tuple[float, float]:
     """A kernel wrapper's device ms per call and ms per call from Python
-    (``bench_kernels.kernel_ms``: the capture must launch the kernel and
-    the replay recompute its output)."""
+    (``bench_kernels.kernel_ms``: the capture must launch the kernel
+    ``per_call`` times a call and the replay recompute its output)."""
     from alink_tpu_torch.tools.bench_kernels import kernel_ms as timed
 
-    return timed(fn, counter)
+    return timed(fn, counter, per_call=per_call)
 
 
 def maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -154,10 +167,17 @@ def maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
 K1_LIMIT = 1e-5
 # The slice feeds float embeddings (accumulation-order noise, see above).
 K1_SLICE_LIMIT = 1e-3
+# Phase (i) feeds VGGFace-ResNet50's random-weight features, 2,048-d and
+# unnormalised: the logits span far more than the embeddings', so a hidden
+# value that rounds to the other bf16 moves a score further.  Held to the
+# JAX package's bound for its kernel against XLA on float features
+# (tests/test_pairwise.py:59), with the share of pairs past 1e-3 printed.
+K1_FLOAT_LIMIT = 2e-2
 # (rows, cols, D, head widths, head kind): the serving grid (D 512) and the
 # training one (D 2,048) under the DFW head (512, 64) and the SmallRes-sized
 # head (128, 32), softmax and sigmoid; an H1 above 512 (passes of 256);
-# ragged grids (D 98: the wrapper pads the features to a multiple of 4).
+# ragged grids (D 98: the wrapper pads the features to a multiple of 4);
+# the eval_regression stage grid (168^2 at D 64: a single slab of D).
 K1_CASES = ((1000, 1000, 512, (512, 64), "softmax"),
             (1000, 1000, 512, (512, 64), "sigmoid"),
             (1000, 1000, 512, (128, 32), "softmax"),
@@ -169,9 +189,19 @@ K1_CASES = ((1000, 1000, 512, (512, 64), "softmax"),
             (300, 300, 2048, (1024, 64), "softmax"),
             (37, 53, 100, (512, 64), "softmax"),
             (37, 53, 100, (128, 32), "sigmoid"),
-            (37, 53, 98, (128, 32), "softmax"))
+            (37, 53, 98, (128, 32), "softmax"),
+            (168, 168, 64, (512, 64), "softmax"))
 # Shapes timed: the serving and the training grid under the DFW head.
 K1_TIMED = ((1000, 1000, 512), (1000, 1000, 2048))
+# Heads wider than 256 in H2 run as a launch per chunk of 256 columns (the
+# chunks' logit differences summed in the output): dyadic data at D 2,048,
+# held to the same limit, then timed.
+K1_WIDE = ((1000, 1000, 2048, (512, 512), "softmax"),
+           (1000, 1000, 2048, (1024, 320), "sigmoid"))
+# K2 on bf16 photos: taps and blend in f32 on both sides with the same
+# roundings, one rounding to bf16 on the store; held within one bf16 step
+# at the top of the 0-255 range (1.0 between 128 and 256).
+K2_BF16_LIMIT = 1.0
 
 
 def exact_head(kind: str, g: torch.Generator, dev, d: int = 512,
@@ -184,7 +214,10 @@ def exact_head(kind: str, g: torch.Generator, dev, d: int = 512,
     head = SiameseHead(d, widths, head=kind, generator=g, device=dev)
     k1 = 7 + round(np.log2(d / 512) / 2)
     k2 = 7 + round(np.log2(widths[0] / 512) / 2)
-    k3 = 3 if widths[1] >= 64 else 2
+    # The output layer's scale grows with H2 past 64, so the scores keep
+    # spanning [0, 1].
+    k3 = (3 if widths[1] >= 64 else 2) + max(
+        0, round(np.log2(widths[1] / 64) / 2))
     # (weight range, bias range, scale) per layer: hidden 0, hidden 1, out.
     spec = ((3, 64, 2.0 ** -k1), (3, 32, 2.0 ** -k2), (15, 8, 2.0 ** -k3))
     with torch.no_grad():
@@ -197,6 +230,73 @@ def exact_head(kind: str, g: torch.Generator, dev, d: int = 512,
             head.out.bias[-1] -= float(torch.round(torch.median(z) * 2 ** k3)
                                        * 2.0 ** -k3)
     return head
+
+
+@torch.no_grad()
+def k1_vs_f64(head, rows, cols, got, plain) -> dict:
+    """How far K1's scores ``got``, the plain version's ``plain`` (f32 sums
+    on the CUDA cores) and the plain version on the tensor cores (TF32
+    products: exact for its bf16 operands, the sums in the tensor cores'
+    f32 adders, as the kernel's) lie from two float64 evaluations of the
+    head on ``rows`` x ``cols``: ``exact`` (no rounding at all) and
+    ``rounded`` (operands and hidden values rounded to bf16 where every
+    side rounds them, the sums in f64: what all three approximate, so only
+    their f32 sums and the bf16 roundings those flip remain).  Max and mean
+    |diff| of each side."""
+    from alink_tpu_torch.ops import pairwise
+
+    layers = pairwise.head_weights(head)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tensor_cores = pairwise.score_matrix_reference(head, rows, cols)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def bf(x):
+        return x.to(torch.bfloat16).double()
+
+    def run(x, rnd):
+        x = x.double()
+        for w, b in layers[:-1]:
+            w = bf(w.float()) if rnd else w.double()
+            x = torch.relu((bf(x) if rnd else x) @ w + b.double())
+        wo, bo = layers[-1]
+        wo = bf(wo.float()) if rnd else wo.double()
+        z = (bf(x) if rnd else x) @ wo + bo.double()
+        return torch.sigmoid(z[..., 1] - z[..., 0])
+
+    rb = max(1, (1 << 25) // (cols.shape[0] * cols.shape[1]))
+    out = {}
+    for rnd in (False, True):
+        ref = torch.cat([run(torch.abs(rows[i:i + rb, None].float()
+                                       - cols[None].float()), rnd)
+                         for i in range(0, rows.shape[0], rb)])
+        for side, s in (("kernel", got), ("plain", plain),
+                        ("plain on tensor cores", tensor_cores)):
+            d = (s.double() - ref).abs()
+            out[(side, "rounded" if rnd else "exact")] = (float(d.max()),
+                                                          float(d.mean()))
+    return out
+
+
+def f64_line(dist: dict) -> str:
+    return "; ".join(f"{side} vs f64 {ref} max {mx:.3e} mean {mn:.3e}"
+                     for (side, ref), (mx, mn) in dist.items())
+
+
+def f64_check(dist: dict, name: str) -> None:
+    """K1 as close to the exact f64 answer as the plain version (max and
+    mean within 10 %), and on average no further from the rounded f64
+    answer than twice the plain version on the same tensor cores."""
+    for i, what in ((0, "max"), (1, "mean")):
+        k, p = dist[("kernel", "exact")][i], dist[("plain", "exact")][i]
+        check(k <= 1.1 * p, f"{name}: kernel's {what} |diff| from f64 "
+              f"{k:.3e} > 1.1 x the plain version's {p:.3e}")
+    k = dist[("kernel", "rounded")][1]
+    p = dist[("plain on tensor cores", "rounded")][1]
+    check(k <= 2 * p + 1e-6, f"{name}: kernel's mean |diff| from rounded "
+          f"f64 {k:.3e} > twice the plain version's on tensor cores {p:.3e}")
 
 
 def face_transforms(rng, n: int, dev, jitter: float = 2.0) -> torch.Tensor:
@@ -263,12 +363,14 @@ def phase_kernels(dev, g, rng):
               f"call from Python), plain {plain:.4f} ms, {tf:.1f} TFLOP/s "
               f"({100 * tf / H100_BF16_TFLOPS:.1f} % of "
               f"{H100_BF16_TFLOPS:.0f} dense bf16)", flush=True)
+    k1_wide(dev, g, feats)
     head = exact_head("softmax", g, dev)
 
     # K2: affine warp, 64 photos 160x160x3 -> 112x112 chips.
     imgs = torch.tensor(rng.uniform(0, 255, (BATCH, IMG, IMG, 3)),
                         dtype=torch.float32, device=dev)
     imgs_u8 = torch.round(imgs).to(torch.uint8)
+    imgs_bf = imgs.to(torch.bfloat16)
     Ms = face_transforms(rng, BATCH, dev)
     extreme = torch.tensor([
         [[0.01, 0.0, 50.0], [0.0, 0.01, 50.0]],      # tiny span
@@ -281,8 +383,12 @@ def phase_kernels(dev, g, rng):
     ], device=dev)
     Mx = torch.cat([extreme, Ms[: BATCH - len(extreme)]])
     k2_err = 0.0
+    limits = {torch.float32: 1e-3, torch.uint8: 1.0,
+              torch.bfloat16: K2_BF16_LIMIT}
     for name, x, M in (("f32 faces", imgs, Ms), ("f32 extreme", imgs, Mx),
-                       ("u8 faces", imgs_u8, Ms), ("u8 extreme", imgs_u8, Mx)):
+                       ("u8 faces", imgs_u8, Ms), ("u8 extreme", imgs_u8, Mx),
+                       ("bf16 faces", imgs_bf, Ms),
+                       ("bf16 extreme", imgs_bf, Mx)):
         for border in ("zero", "nearest"):
             for interp in ("linear", "nearest"):
                 got = image.affine_warp_batch_kernel(x, M, (112, 112), border,
@@ -291,7 +397,7 @@ def phase_kernels(dev, g, rng):
                                                          border, interp)
                 torch.cuda.synchronize()
                 err = maxdiff(got, want)
-                limit = 1.0 if x.dtype == torch.uint8 else 1e-3
+                limit = limits[x.dtype]
                 print(f"K2 affine_warp {name} border={border} "
                       f"interp={interp}: max|diff| {err:.3e} (limit {limit})",
                       flush=True)
@@ -309,6 +415,13 @@ def phase_kernels(dev, g, rng):
     print(f"K2 64x160x160x3 -> 112x112 f32: kernel {k2_ms:.4f} ms "
           f"({k2_call:.4f} per call from Python), plain {k2_plain:.4f} ms",
           flush=True)
+    bf_ms, bf_call = kernel_ms(
+        lambda: image.affine_warp_batch_kernel(imgs_bf, Ms, (112, 112)),
+        image.affine_warp_batch_kernel)
+    bf_bound = 2 * (imgs.numel() + BATCH * 112 * 112 * 3) / H100_BYTES_PER_S
+    print(f"K2 64x160x160x3 -> 112x112 bf16: kernel {bf_ms:.4f} ms "
+          f"({bf_call:.4f} per call from Python), bound "
+          f"{bf_bound * 1e3:.4f} ms (bytes)", flush=True)
     # Bounds from the shapes: K1's head in bf16 on the tensor cores over
     # f32 features (the serving grid, D 512); K2 moves its f32 photos in and
     # chips out.
@@ -320,6 +433,48 @@ def phase_kernels(dev, g, rng):
                                      k1_ops, H100_BF16_TFLOPS, k1_bytes),
         "affine_warp": kernel_numbers(k2_err, k2_ms, k2_call, k2_plain,
                                       k2_ops, H100_F32_TFLOPS, k2_bytes)}
+
+
+def k1_wide(dev, g, feats) -> None:
+    """K1 under heads wider than 256 in H2 (``K1_WIDE``): one launch per
+    256-column chunk, held to the plain version on dyadic data, then the
+    device time beside the bound and the plain version."""
+    from alink_tpu_torch.ops import pairwise
+
+    k1 = pairwise.score_matrix_kernel
+    for n, m, d, (h1, h2), kind in K1_WIDE:
+        rows, cols = feats[d][0][:n], feats[d][1][:m]
+        hd = exact_head(kind, g, dev, d, (h1, h2), rows[:64], cols[:64])
+        chunks = len(pairwise.head_chunks(h2))
+        name = f"{n}x{m}x{d} ({h1}, {h2}) {kind}"
+        before = k1.launches
+        got = k1(hd, rows, cols)
+        launched = k1.launches - before
+        want = pairwise.score_matrix_reference(hd, rows, cols)
+        torch.cuda.synchronize()
+        err = maxdiff(got, want)
+        q05, q95 = torch.quantile(want.flatten()[:100_000],
+                                  torch.tensor([0.05, 0.95], device=dev))
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"K1 {name}: bad output")
+        check(launched == chunks, f"K1 {name}: {launched} launches, "
+              f"{chunks} chunks")
+        check(err <= K1_LIMIT, f"K1 {name}: max|diff| {err} > {K1_LIMIT}")
+        check(float(q95 - q05) >= 0.4, f"K1 {name}: scores too narrow")
+        ms, call = kernel_ms(lambda: k1(hd, rows, cols), k1, per_call=chunks)
+        plain = cuda_ms(lambda: pairwise.score_matrix_reference(hd, rows,
+                                                                cols), iters=3)
+        ops = n * m * (d + 2 * d * h1 + 2 * h1 * h2 + 2 * h2 * 2)
+        nbytes = 4 * (n * d + m * d + n * m) + 2 * (d * h1 + h1 * h2 + 2 * h2)
+        t_ops = ops / (H100_BF16_TFLOPS * 1e12) * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        print(f"K1 pair_score {name} dyadic, {chunks} chunks of H2: "
+              f"max|diff| {err:.3e} (limit {K1_LIMIT}), plain scores 5-95 % "
+              f"in [{q05:.3f}, {q95:.3f}]; kernel {ms:.4f} ms ({call:.4f} "
+              f"per call from Python), plain {plain:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'})",
+              flush=True)
 
 
 def kernel_numbers(err, ms, call, plain, ops, peak_tera, nbytes,
@@ -351,6 +506,16 @@ K3_EXACT_LIMIT = 1e-6
 # Float data: f32 sums in other orders can round a y1/y2/out value to the
 # neighbouring bf16; held relative to the largest output.
 K3_FLOAT_LIMIT = 1e-2
+# Chains at a Cm that pads past 512 (y1 and y2 in global scratch): 14x14
+# at batch 32, a projected block then an identity block.  Each block alone
+# on dyadic data is exact.  The second block of a chain reads the first's
+# bf16 output, whose values span 2^-13 to ~2^4: its 3x3 sums over 9 x Cm
+# terms then pass 2^24 units of that grid, so f32 sums in another order
+# may round (the plain chain in f32 and in f64 differ at Cm 1,024 on the
+# CPU), and the chain is held to the float limit.
+K3_WIDE = ((576, ((512, 576, 1024, True), (1024, 576, 1024, False))),
+           (1024, ((1024, 1024, 2048, True), (2048, 1024, 2048, False))))
+K3_WIDE_HW = 14
 H100_BF16_TFLOPS = 989.0
 H100_F32_TFLOPS = 67.0          # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -397,6 +562,83 @@ def k3_weights(cin, cm, cout, proj, g, dev, exact: bool):
         sp = sp * (2.0 ** (k2 + k3) if exact else 1.0)   # x . Wp ~ acc1
         wts += [mat((cin, cout), cin), sp, bp]
     return kernel_weights(BottleneckWeights(*wts), dev)
+
+
+def k3_wide(dev, g, gd) -> float:
+    """K3 at a Cm that pads past 512 (``K3_WIDE``: y1 and y2 in the
+    kernel's global scratch): each block against its plain version on
+    dyadic data (exact), then the chain against the plain chain (float
+    limit), with its device time beside the bound and the plain chain;
+    returns the largest difference of the dyadic checks."""
+    from alink_tpu_torch.ops import resblock
+
+    k3 = resblock.bottleneck_s1_kernel
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hw, worst = K3_WIDE_HW, 0.0
+    for cm, blocks in K3_WIDE:
+        ws = tuple(k3_weights(ci, c, co, proj, g, dev, True)
+                   for ci, c, co, proj in blocks)
+        cin, cout = blocks[0][0], blocks[-1][2]
+        for (ci, c, co, p), w in zip(blocks, ws):
+            plan = resblock.launch_plan(
+                K3_BATCH, hw, hw, resblock.padded_width(ci),
+                resblock.padded_width(c), resblock.padded_width(co), p, sms)
+            xb = torch.randint(-2, 3, (K3_BATCH, hw, hw, ci), generator=gd,
+                               device=dev).to(torch.bfloat16)
+            got = resblock.bottleneck_s1_kernel(xb, w)
+            want = resblock.bottleneck_s1_reference(xb, w)
+            torch.cuda.synchronize()
+            err = maxdiff(got, want)
+            nonzero = float((want != 0).float().mean())
+            print(f"K3 wide block {hw}x{hw} {ci}->{c}->{co}"
+                  f"{' proj' if p else ''} batch {K3_BATCH} (Cm pads to "
+                  f"{resblock.padded_width(c)}; y1/y2 in global scratch: "
+                  f"{plan.global_act}; {plan.blocks} blocks, ring "
+                  f"{plan.slots}) dyadic: max|diff| {err:.3e} (limit "
+                  f"{K3_EXACT_LIMIT}), {100 * nonzero:.0f} % non-zero",
+                  flush=True)
+            check(plan.global_act, f"K3 Cm {c}: not on the global-scratch "
+                  "path")
+            check(got.shape == want.shape and got.dtype == torch.bfloat16,
+                  f"K3 Cm {c}: bad output")
+            check(err <= K3_EXACT_LIMIT and nonzero > 0.2,
+                  f"K3 Cm {c}: max|diff| {err} > {K3_EXACT_LIMIT} or "
+                  f"{100 * nonzero:.0f} % non-zero")
+            worst = max(worst, err)
+        x = torch.randint(-2, 3, (K3_BATCH, hw, hw, cin), generator=gd,
+                          device=dev).to(torch.bfloat16)
+        name = " -> ".join(f"{ci}->{c}->{co}{' proj' if p else ''}"
+                           for ci, c, co, p in blocks)
+        got = resblock.bottleneck_chain(x, ws)
+        want = resblock.bottleneck_chain_reference(x, ws)
+        torch.cuda.synchronize()
+        err = maxdiff(got, want)
+        rel = err / float(want.float().abs().max())
+        ndiff = int((got != want).sum())
+        check(got.shape == want.shape == (K3_BATCH, hw, hw, cout)
+              and got.dtype == torch.bfloat16, f"K3 Cm {cm}: bad output")
+        check(rel <= K3_FLOAT_LIMIT, f"K3 Cm {cm} chain: relative {rel} > "
+              f"{K3_FLOAT_LIMIT}")
+        ms, call = kernel_ms(lambda: resblock.bottleneck_chain(x, ws), k3,
+                             per_call=len(ws))
+        plain = cuda_ms(lambda: resblock.bottleneck_chain_reference(x, ws),
+                        iters=3)
+        ops = sum(k3_flops(K3_BATCH, hw, ci, c, co, p)
+                  for ci, c, co, p in blocks)
+        nbytes = 2 * sum(K3_BATCH * hw * hw * (ci + co) + sum(
+            t.numel() for t in (w.w1, w.w3, w.w2, w.wp) if t is not None)
+            for (ci, c, co, p), w in zip(blocks, ws))
+        bound = max(ops / (H100_BF16_TFLOPS * 1e12),
+                    nbytes / H100_BYTES_PER_S) * 1e3
+        print(f"K3 wide chain Cm {cm} {hw}x{hw} batch {K3_BATCH} {name} "
+              f"dyadic input: max|diff| {err:.3e}, relative {rel:.3e} (limit "
+              f"{K3_FLOAT_LIMIT}), {ndiff} of {want.numel()} differ; kernel "
+              f"{ms:.4f} ms "
+              f"({call:.4f} per call from Python, {ops / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain:.4f} ms, bound {bound:.4f} ms",
+              flush=True)
+        del x, xb, got, want, ws
+    return worst
 
 
 def phase_k3(dev, g):
@@ -496,6 +738,7 @@ def phase_k3(dev, g):
           f"K3 padded widths: max|diff| {err} > {K3_EXACT_LIMIT}")
     err_all = max(err_all, err)
     del x, got, want, ws
+    err_all = max(err_all, k3_wide(dev, g, gd))
     torch.cuda.empty_cache()
     times = bench_k3(dev, (K3_BATCH, 256), g)
     for batch, res in times.items():
@@ -996,6 +1239,253 @@ def phase_k4(dev, g, smi: str):
                       "library_ms": lib}
 
 
+# Phase (i): the DFW evaluation chain at full width.  Cuts, each printed:
+I_PEOPLE = 147           # synthetic test people at 224^2, 7 faces each
+I_DFW_FACES = 7771       # DFW's test list
+I_DFW_PEOPLE = 1110      # the DFW-size grid: 7,770 faces of the protocol
+I_FEATURE_RES = 2048
+I_BAND = 128             # rows of a grid held to the plain version and f64
+I_EVAL_R05 = "EVAL_r05.json"
+
+
+def phase_eval(dev, smi: str) -> dict:
+    """(i): the DFW evaluation chain (``tools.evaluate`` through
+    ``--prefix``) at 224^2 with the counters zeroed just before and read
+    just after, its grid held to the plain version; the DFW-size
+    evaluation by step; ``run_eval_regression`` on EVAL_r05.json's
+    protocol.  Returns the kernels' launches on the evaluation path."""
+    import contextlib
+    import io
+    import tempfile
+
+    from alink_tpu_torch import train as T
+    from alink_tpu_torch.data import make_synthetic_dfw_test
+    from alink_tpu_torch.data.synth import dfw_test_mask, dfw_test_protocol
+    from alink_tpu_torch.evaluation import (masked_scores, roc_stats,
+                                            threshold_sweep)
+    from alink_tpu_torch.models import SiameseHead
+    from alink_tpu_torch.ops import pairwise, resblock
+    from alink_tpu_torch.tools import eval_regression, evaluate
+    from alink_tpu_torch.tools.generate_matrix import restore_head_and_score
+
+    k1, k3 = pairwise.score_matrix_kernel, resblock.bottleneck_s1_kernel
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="eval_", dir=work))
+    faces = 7 * I_PEOPLE
+    print(f"eval cut: {faces} test faces ({I_PEOPLE} people x (3 plain + 3 "
+          f"disguised + 1 impostor)); DFW's test set has {I_DFW_FACES}",
+          flush=True)
+    t0 = time.perf_counter()
+    root, names, mask = make_synthetic_dfw_test(
+        str(out / "dfw"), num_people=I_PEOPLE, plain_per_person=3,
+        disguised_per_person=3, impostors_per_person=1, image_size=F_IMAGE,
+        seed=SEED)
+    print(f"eval: protocol written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    head = SiameseHead(I_FEATURE_RES, (512, 64), device=dev,
+                       generator=torch.Generator().manual_seed(SEED + 11))
+    ckpt = str(out / "head")
+    T.save(ckpt, head.state_dict())
+
+    # 1. tools.evaluate through --prefix: VGGFace-ResNet50 (K3), the grid
+    # (K1), the split, the sweep and the stats of the three cases.
+    k1.launches = k3.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        feats, scores = evaluate.main([
+            "--model_ckpt", ckpt, "--prefix", root, "--mask",
+            str(Path(root) / "updated_testing_mask.txt"), "--device",
+            str(dev)])
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    counts = {"pair_score": k1.launches, "bottleneck": k3.launches}
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()
+             if line.startswith("{")]
+    print(f"eval: tools.evaluate --prefix ({faces} faces at {F_IMAGE}^2, "
+          f"VGGFace-ResNet50 (3, 4, 6, 3) bf16, head (512, 64)): "
+          f"{t_eval:.2f} s; launches {counts}", flush=True)
+    for line in lines:
+        print(f"eval: {json.dumps(line)}", flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched by tools.evaluate")
+    check([j["case"] for j in lines] == ["impersonation", "obfuscation",
+                                         "overall"]
+          and all(np.isfinite([j["auc"], j["eer"], j["gar_at_1pct_far"],
+                               j["gar_at_01pct_far"]]).all() for j in lines),
+          "evaluate: missing or non-finite AUC / EER / GAR lines")
+    check(feats.shape == (faces, I_FEATURE_RES) and np.isfinite(feats).all(),
+          "evaluate: bad features")
+    ft = torch.as_tensor(feats, device=dev)
+    want = pairwise.score_matrix_reference(head, ft, ft)
+    err = maxdiff(scores, want)
+    d = (scores - want).abs()
+    lz = torch.special.logit(want.double(), eps=1e-12).abs()
+    print(f"eval: grid {tuple(scores.shape)} kernel vs plain on the same "
+          f"features: max|diff| {err:.3e} (limit {K1_FLOAT_LIMIT}), mean "
+          f"{float(d.mean()):.3e}, {100 * float((d > 1e-3).float().mean()):.3f}"
+          f" % of pairs past 1e-3; |logit| median {float(lz.median()):.2f}, "
+          f"max {float(lz.max()):.2f}", flush=True)
+    check(scores.shape == (faces, faces) and err <= K1_FLOAT_LIMIT,
+          f"evaluate grid: max|diff| {err} > {K1_FLOAT_LIMIT}")
+    # Both sides against float64 on a band of rows: where the kernel and the
+    # plain version part, each should be as far from the f64 answer.
+    band = slice(0, I_BAND)
+    dist = k1_vs_f64(head, ft[band], ft, scores[band], want[band])
+    print(f"eval: grid rows 0-{I_BAND - 1}: {f64_line(dist)}", flush=True)
+    f64_check(dist, "evaluate grid")
+    del ft, want, scores, d, lz
+
+    # 2. The DFW-size evaluation: 7,770 seeded features, the protocol's mask
+    # for 1,110 people (in memory), the grid, then cases 1-3; twice (the
+    # first call also packs the head and warms the sort).
+    kinds, persons = dfw_test_protocol(I_DFW_PEOPLE, 3, 3, 1)
+    mask_t = torch.as_tensor(dfw_test_mask(kinds, persons), device=dev).to(
+        torch.int8)
+    n = mask_t.shape[0]
+    fd = torch.randn((n, I_FEATURE_RES), device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED))
+    thresholds = np.linspace(0.0, 1.0, 10001)
+    for run in ("first", "warm"):
+        torch.cuda.synchronize()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        grid = restore_head_and_score(ckpt, fd, dev)
+        torch.cuda.synchronize()
+        t_grid = time.perf_counter() - t0
+        launched = k1.launches
+        t_sweep = t_stats = 0.0
+        stats = {}
+        for case in (1, 2, 3):
+            t0 = time.perf_counter()
+            gen, imp = masked_scores(grid, mask_t, case)
+            tpr, fpr = threshold_sweep(gen, imp, thresholds)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            stats[case] = (roc_stats(tpr, fpr), gen.numel(), imp.numel())
+            t_stats += time.perf_counter() - t1
+            t_sweep += t1 - t0
+        print(f"eval: DFW evaluation s ({run}; {n}^2 x {I_FEATURE_RES} grid "
+              f"+ ROC for cases 1-3): grid {t_grid:.4f}, split + sweep "
+              f"{t_sweep:.4f}, stats {t_stats:.4f}, total "
+              f"{t_grid + t_sweep + t_stats:.4f} on {smi}; K1 launches "
+              f"{launched}", flush=True)
+    # The warm run's launches count (the first one is the same work again).
+    counts["pair_score"] += launched
+    check(launched > 0, "kernel pair_score was not launched by the DFW grid")
+    check(grid.shape == (n, n) and bool(torch.isfinite(grid).all()),
+          "DFW grid: bad output")
+    # The grid against the plain version on its first and last rows (all
+    # columns), and both against f64 on the first rows.
+    head_d = SiameseHead(I_FEATURE_RES, device=dev)
+    head_d.load_state_dict(T.restore(ckpt, head_d.state_dict()))
+    for band in (slice(0, I_BAND), slice(n - I_BAND, n)):
+        want = pairwise.score_matrix_reference(head_d, fd[band], fd)
+        err = maxdiff(grid[band], want)
+        print(f"eval: DFW grid rows {band.start}-{band.stop - 1} x {n} "
+              f"kernel vs plain: max|diff| {err:.3e} (limit "
+              f"{K1_FLOAT_LIMIT})", flush=True)
+        check(err <= K1_FLOAT_LIMIT, f"DFW grid rows {band.start}-"
+              f"{band.stop - 1}: max|diff| {err} > {K1_FLOAT_LIMIT}")
+        if band.start == 0:
+            dist = k1_vs_f64(head_d, fd[band], fd, grid[band], want)
+            print(f"eval: DFW grid rows 0-{I_BAND - 1}: {f64_line(dist)}",
+                  flush=True)
+            f64_check(dist, "DFW grid")
+    del want
+    iu = torch.triu(torch.ones(n, n, dtype=torch.bool, device=dev), 1)
+    for case, (st, ng, ni) in stats.items():
+        gen_codes = {1: (1,), 2: (2,), 3: (1, 2)}[case]
+        want_g = int((torch.isin(mask_t, torch.tensor(
+            gen_codes, device=dev, dtype=torch.int8)) & iu).sum())
+        print(f"eval: DFW case {case}: {ng} genuine, {ni} imposter pairs; "
+              f"AUC {st.auc:.6f} EER {st.eer:.6f} GAR@1% "
+              f"{st.gar_at_1pct_far:.6f} (random head and features)",
+              flush=True)
+        check(ng == want_g and ni > 0 and np.isfinite(list(st)).all(),
+              f"DFW case {case}: bad split or statistics")
+    del grid, mask_t, fd, iu
+
+    # 3. run_eval_regression on EVAL_r05.json's protocol (the CLI's
+    # defaults), on the card; each stage's grid is kept and held in full to
+    # the plain version on the same head and features after the run.
+    grids = []
+    score_stage = eval_regression.restore_head_and_score
+
+    def kept(model_ckpt, feats, device):
+        out = score_stage(model_ckpt, feats, device)
+        grids.append((model_ckpt, feats, out))
+        return out
+
+    eval_regression.restore_head_and_score = kept
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            art = eval_regression.main(["--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        eval_regression.restore_head_and_score = score_stage
+    t_reg = time.perf_counter() - t0
+    launched = k1.launches
+    counts["pair_score"] += launched
+    check(launched > 0, "kernel pair_score was not launched by "
+          "run_eval_regression")
+    check(len(grids) == 4, f"eval_regression scored {len(grids)} stages")
+    for model_ckpt, feats, got in grids:
+        ft = torch.as_tensor(feats, device=dev).float()
+        hs = SiameseHead(ft.shape[1], device=dev)
+        hs.load_state_dict(T.restore(model_ckpt, hs.state_dict()))
+        want = pairwise.score_matrix_reference(hs, ft, ft)
+        err = maxdiff(got, want)
+        dist = k1_vs_f64(hs, ft, ft, got, want)
+        stage = Path(model_ckpt).name
+        print(f"eval: {stage} grid {tuple(got.shape)} x {ft.shape[1]} kernel "
+              f"vs plain: max|diff| {err:.3e} (limit {K1_FLOAT_LIMIT}); "
+              f"{f64_line(dist)}", flush=True)
+        check(err <= K1_FLOAT_LIMIT, f"eval_regression {stage} grid: "
+              f"max|diff| {err} > {K1_FLOAT_LIMIT}")
+        f64_check(dist, f"eval_regression {stage} grid")
+    ref = json.loads((Path(__file__).resolve().parent / I_EVAL_R05)
+                     .read_text())
+    print(f"eval: run_eval_regression, {I_EVAL_R05}'s protocol "
+          f"({art['protocol']['train_people']} train / "
+          f"{art['protocol']['test_people']} test people at "
+          f"{art['protocol']['image_size']}^2, n_steps "
+          f"{art['protocol']['n_steps']}): {t_reg:.1f} s; K1 launches "
+          f"{launched}", flush=True)
+    for stage, cases in art["stages"].items():
+        o, r = cases["overall"], ref["stages"][stage]["overall"]
+        print(f"eval: stage {stage} overall AUC {o['auc']:.6f} EER "
+              f"{o['eer']:.6f} GAR@1% {o['gar_at_1pct_far']:.6f} queries "
+              f"{o.get('oracle_queries', '-')} ({I_EVAL_R05}: AUC "
+              f"{r['auc']:.6f} EER {r['eer']:.6f} GAR@1% "
+              f"{r['gar_at_1pct_far']:.6f} queries "
+              f"{r.get('oracle_queries', '-')})", flush=True)
+        check(all(np.isfinite([v[k] for k in ("auc", "eer",
+                                               "gar_at_1pct_far",
+                                               "gar_at_01pct_far")]).all()
+                  for v in cases.values()),
+              f"eval_regression {stage}: non-finite metric")
+    flags, want_flags = art["ordering"], ref["ordering"]
+    check(sorted(flags) == sorted(want_flags) and len(flags) == 15,
+          f"eval_regression: flags {sorted(flags)}")
+    differ = [k for k in want_flags if flags[k] != want_flags[k]]
+    for k in want_flags:
+        print(f"eval: flag {k} {flags[k]} ({I_EVAL_R05}: {want_flags[k]})",
+              flush=True)
+    print(f"eval: flags that differ from {I_EVAL_R05}: {differ or 'none'}",
+          flush=True)
+    st = art["stages"]
+    check(st["existing_al"]["overall"]["oracle_queries"]
+          == st["alink"]["overall"]["oracle_queries"],
+          "eval_regression: the baseline's budget differs from alink's")
+    return counts
+
+
 def rng_images(n: int) -> np.ndarray:
     return np.random.default_rng(SEED).uniform(
         0, 255, (n, F_IMAGE, F_IMAGE, 3)).astype(np.float32)
@@ -1145,10 +1635,14 @@ def main() -> int:
     a2_launches = phase_a2(dev, smi)
     torch.cuda.empty_cache()
     counts["qconv"], numbers["qconv"] = phase_k4(dev, g, smi)
-    # Each kernel's count is the one from the main path that runs it:
-    # serving for K1 and K2, training and the A2 channel for K3, its own op
-    # path for K4.
-    counts["bottleneck"] = alink_counts["bottleneck"] + a2_launches
+    torch.cuda.empty_cache()
+    eval_counts = phase_eval(dev, smi)
+    # Each kernel's count is the one from the main paths that run it:
+    # serving and evaluation for K1, serving for K2, training, the A2
+    # channel and evaluation for K3, its own op path for K4.
+    counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
+                            + eval_counts["bottleneck"])
+    counts["pair_score"] += eval_counts["pair_score"]
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),

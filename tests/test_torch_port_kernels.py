@@ -292,6 +292,61 @@ def test_padded_plain_block_equals_unpadded(cin, cm, cout, proj):
     assert float((want != 0).float().mean()) > 0.2
 
 
+# Cm that pads past 512: y1 and y2 in the kernel's global scratch.
+K3_WIDE = [(64, 576, 64, True), (512, 576, 1024, True),
+           (1024, 1024, 1024, False)]
+
+
+@pytest.mark.parametrize("cin,cm,cout,proj", K3_WIDE)
+def test_pack_bottleneck_wide_cm_round_trips(cin, cm, cout, proj):
+    """A Cm past 512 is taken (no width raises): packed at its padded
+    width, round-tripping to ``pad_bottleneck``'s matrices, pad scales and
+    shifts 0."""
+    assert resblock.kernel_takes(cin, cm, cout)
+    assert resblock.padded_width(cm) == {576: 640, 1024: 1024}[cm]
+    kw = resblock.kernel_weights(_k3_weights(cin, cm, cout, proj, cm + cout),
+                                 torch.device("cpu"))
+    resblock._check_packed(kw, torch.device("cpu"))
+    pw = resblock.pad_bottleneck(kw)
+    cmp_ = resblock.padded_width(cm)
+    assert kw.packed.w3.shape == (cmp_ // 128, 9, cmp_ // 32, 128, 32)
+    for got, want in zip(resblock.unpack_bottleneck(kw.packed),
+                         (pw.w1, pw.w3, pw.w2, pw.wp)):
+        assert (got is None and want is None) or torch.equal(got, want)
+    assert torch.equal(kw.vecs.s2[:cm], kw.s2) and not kw.vecs.s2[cm:].any()
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("batch,hw", [(32, 14), (32, 28), (1, 7)])
+@pytest.mark.parametrize("cin,cm,cout,proj", K3_WIDE)
+def test_bottleneck_launch_plan_wide_cm_uses_global_scratch(
+        cin, cm, cout, proj, batch, hw, sms):
+    """Past Cm 512, y1 and y2 of a tile do not fit shared memory beside a
+    2-entry ring: the plan keeps them in global scratch, without clusters,
+    on at most one block per SM (block b walks tiles b, b + blocks, ...:
+    every tile once), and holds the ring and barriers only; the entry
+    point's checks pass.  VGGFace-ResNet50's shapes keep shared memory."""
+    ci, cmp_, co = (resblock.padded_width(c) for c in (cin, cm, cout))
+    plan = resblock.launch_plan(batch, hw, hw, ci, cmp_, co, proj, sms)
+    assert plan.global_act and plan.split == 1
+    assert 2 <= plan.slots <= 4
+    assert plan.smem == resblock._smem(cmp_, plan.slots, True) <= 232448
+    assert plan.smem == plan.slots * 2 * (128 * 32 * 2 + 112 * 32 * 2) + 80
+    assert plan.blocks == min(plan.tiles, sms)
+    walked = torch.cat([torch.arange(b, plan.tiles, plan.blocks)
+                        for b in range(plan.blocks)])
+    assert torch.equal(torch.sort(walked).values, torch.arange(plan.tiles))
+    for shape in K3_SHAPES:
+        hw0, cin0, cm0, cout0, proj0 = shape
+        assert not resblock.launch_plan(batch, hw0, hw0, cin0, cm0, cout0,
+                                        proj0, sms).global_act
+
+
+def test_padded_plain_block_equals_unpadded_wide_cm():
+    """The zero padding is exact at a Cm that pads past 512 too."""
+    test_padded_plain_block_equals_unpadded(64, 576, 64, True)
+
+
 @pytest.mark.parametrize("cin,cm,cout,proj", K3_ODD)
 def test_bottleneck_launch_plan_covers_padded_widths(cin, cm, cout, proj):
     """The launch plan at the padded widths passes the entry point's checks
@@ -306,10 +361,17 @@ def test_bottleneck_launch_plan_covers_padded_widths(cin, cm, cout, proj):
 
 
 def test_bottleneck_kernel_names_the_width_it_refuses():
-    """Above a padded Cm of 512 the wrapper raises, naming the reason."""
+    """No Cm is refused: a Cm that pads past 512 is packed at its padded
+    width (y1 and y2 in global scratch); what the wrapper refuses is an
+    input whose channels match neither Cin nor its padded width, and it
+    names that width."""
     wts = resblock.kernel_weights(_k3_weights(64, 576, 64, True, 3),
                                   torch.device("cpu"))
-    with pytest.raises(ValueError, match="pass wide"):
+    resblock._check_packed(wts, torch.device("cpu"))
+    assert wts.packed.w3.shape == (5, 9, 20, 128, 32)
+    with pytest.raises(ValueError, match="x has 48 channels"):
+        resblock.bottleneck_s1_kernel(torch.zeros(1, 4, 4, 48), wts)
+    with pytest.raises(ValueError, match="CUDA"):
         resblock.bottleneck_s1_kernel(torch.zeros(1, 4, 4, 64), wts)
 
 
@@ -411,7 +473,7 @@ def test_bottleneck_kernel_refuses_unpacked_weights():
     with pytest.raises(ValueError, match="packed w2"):
         resblock._check_packed(wts._replace(packed=bad), torch.device("cpu"))
     # Widths the kernel does not tile run zero-padded (packed at the padded
-    # widths); a Cm that pads past 512 is not packed, and is refused.
+    # widths), a Cm that pads past 512 too (y1 and y2 in global scratch).
     odd = resblock.kernel_weights(_k3_weights(32, 16, 64, True, 1),
                                   torch.device("cpu"))
     assert odd.packed is not None and resblock.kernel_takes(32, 16, 64)
@@ -419,10 +481,12 @@ def test_bottleneck_kernel_refuses_unpacked_weights():
     assert odd.packed.w1.shape == (1, 2, 64, 32)
     assert resblock.kernel_takes(96, 64, 64)
     assert resblock.kernel_takes(128, 512, 64)
-    assert not resblock.kernel_takes(64, 513, 256)
+    assert resblock.kernel_takes(64, 513, 256)
+    assert not resblock.kernel_takes(0, 64, 64)
     wide = resblock.kernel_weights(_k3_weights(64, 576, 64, True, 2),
                                    torch.device("cpu"))
-    assert wide.packed is None and wide.vecs is None
+    resblock._check_packed(wide, torch.device("cpu"))
+    assert wide.vecs.s1.shape == (640,)
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -584,6 +648,85 @@ def test_pair_score_head_tiling_limits():
         pairwise.head_tiling(512, 257)
 
 
+# Heads wider than 256 in H2: a launch per chunk of at most 256 columns.
+K1_WIDE = [(320, (0, 256, 320)), (512, (0, 256, 512)),
+           (1024, (0, 256, 512, 768, 1024))]
+
+
+def _biased_head(d, widths, kind, seed):
+    """``_head`` with random non-zero biases."""
+    head = _head(d, widths, kind, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for lin in (*head.hidden, head.out):
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.1)
+    return head
+
+
+@pytest.mark.parametrize("h2,edges", K1_WIDE)
+def test_pair_score_h2_chunks_cover_each_column_once(h2, edges):
+    """``head_chunks`` cuts H2 into launches of at most 256 columns that
+    cover every output column once; the modes are first, middle..., last;
+    each chunk's plan is one the entry point takes; the packed chunks
+    round-trip to the head's weights, the output bias in the first."""
+    chunks = pairwise.head_chunks(h2)
+    assert [c0 for c0, _ in chunks] + [chunks[-1][1]] == list(edges)
+    cover = torch.zeros(h2, dtype=torch.int64)
+    for c0, c1 in chunks:
+        assert 0 < c1 - c0 <= 256
+        cover[c0:c1] += 1
+    assert bool((cover == 1).all())
+    modes = [pairwise.chunk_mode(k, len(chunks)) for k in range(len(chunks))]
+    assert modes == [1] + [2] * (len(chunks) - 2) + [3]
+    assert pairwise.head_chunks(64) == ((0, 64),)
+    assert pairwise.chunk_mode(0, 1) == 0
+    head = _biased_head(96, (300, h2), "softmax", seed=h2)
+    packed = pairwise.packed_head(head, "cpu")
+    assert len(packed) == len(chunks)
+    for (c0, c1), pk in zip(chunks, packed):
+        assert pk.h2 == c1 - c0 and (pk.np1, pk.h2p) in K1_BUILT
+        assert bool(pk.bo.any()) == (c0 == 0)
+        for n, m, d in K1_GRIDS:
+            _k1_entry_checks(pairwise.launch_plan(n, m, d, pk.h1, pk.h2),
+                             n, m, d)
+    for (w, b), (wh, bh) in zip(pairwise.unpack_head(packed),
+                                pairwise.head_weights(head)):
+        assert torch.equal(w, wh.detach().to(torch.bfloat16).float())
+        assert torch.equal(b, bh.detach().float())
+
+
+@pytest.mark.parametrize("kind", ["softmax", "sigmoid"])
+@pytest.mark.parametrize("h2,edges", K1_WIDE)
+def test_pair_score_chunks_sum_to_unchunked_logits(h2, edges, kind):
+    """The chunks' logit differences, each from its packed weights on the
+    plain arithmetic, the output bias in the first only, sum to the whole
+    head's logit difference (f32 sums in another order: 1e-5 of the
+    largest), and their sigmoid gives the plain scorer's scores."""
+    head = _biased_head(64, (128, h2), kind, seed=h2 + 1)
+    rng = np.random.default_rng(h2)
+    rows = torch.from_numpy(rng.normal(size=(9, 64)).astype(np.float32))
+    cols = torch.from_numpy(rng.normal(size=(11, 64)).astype(np.float32))
+    x = torch.abs(rows[:, None] - cols[None])
+
+    def logit_diff(layers):
+        h = x
+        for w, b in layers[:-1]:
+            h = torch.relu(pairwise._bf16(h) @ pairwise._bf16(w) + b)
+        wo, bo = layers[-1]
+        lg = pairwise._bf16(h) @ pairwise._bf16(wo) + bo
+        return lg[..., 1] - lg[..., 0]
+
+    with torch.no_grad():
+        whole = logit_diff(tuple((w.detach().float(), b.detach().float())
+                                 for w, b in pairwise.head_weights(head)))
+        parts = sum(logit_diff(pairwise.unpack_head(pk))
+                    for pk in pairwise.packed_head(head, "cpu"))
+        want = pairwise.score_matrix_reference(head, rows, cols)
+    assert float((parts - whole).abs().max()) <= 1e-5 * float(
+        whole.abs().max())
+    assert float((torch.sigmoid(parts) - want).abs().max()) <= 1e-6
+
+
 # -- K2 ----------------------------------------------------------------------
 
 def _kernel_inverse(Ms: np.ndarray) -> np.ndarray:
@@ -625,3 +768,46 @@ def test_warp_kernel_inverse_mirror_matches_warp_params():
     assert np.isinf(want[-4, :4]).all() and np.isinf(want[-3, :4]).all()
     assert np.array_equal(got[~nan].view(np.uint32),
                           want[~nan].view(np.uint32))
+
+
+# bf16 photos against the JAX warp, which computes in bf16: its tap weights
+# are rounded to bf16 (at most 0.5 on the 0-255 scale), both round the
+# result to bf16 (a step of 1.0 between 128 and 256), so the two may differ
+# by that step plus the weights' rounding: 1.5, the JAX package's own warp
+# budget (tests/test_geometry.py:419).  The nearest interpolation has
+# one-hot weights on both sides and must agree exactly.
+K2_BF16_LIMIT = 1.5
+
+
+@pytest.mark.parametrize("interp", ["linear", "nearest"])
+@pytest.mark.parametrize("border", ["zero", "nearest"])
+def test_warp_plain_bf16_matches_jax(border, interp):
+    """The plain version (the kernel's reference on the card) warps bf16
+    images as JAX's ``affine_warp_batch`` does, within K2_BF16_LIMIT, and
+    returns bf16."""
+    import jax.numpy as jnp
+
+    from alink_tpu.ops import image as jimage
+
+    rng = np.random.default_rng(21)
+    imgs = rng.uniform(0, 255, (3, 40, 48, 3)).astype(np.float32)
+    s = rng.uniform(0.7, 1.3, 3)
+    th = rng.uniform(-0.5, 0.5, 3)
+    Ms = np.stack([np.stack([s * np.cos(th), -s * np.sin(th),
+                             rng.uniform(-5, 15, 3)], -1),
+                   np.stack([s * np.sin(th), s * np.cos(th),
+                             rng.uniform(-5, 15, 3)], -1)], 1)
+    Ms = Ms.astype(np.float32)
+    jb = jnp.asarray(imgs).astype(jnp.bfloat16)
+    want = np.asarray(jimage.affine_warp_batch(
+        jb, jnp.asarray(Ms), (32, 36), border=border, interp=interp
+    ).astype(jnp.float32))
+    tb = torch.from_numpy(np.asarray(jb.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = image.affine_warp_batch_reference(tb, torch.from_numpy(Ms),
+                                            (32, 36), border, interp)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 32, 36, 3)
+    diff = np.abs(got.float().numpy() - want)
+    limit = K2_BF16_LIMIT if interp == "linear" else 0.0
+    assert diff.max() <= limit
+    assert diff.mean() < 0.1

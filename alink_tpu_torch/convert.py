@@ -15,6 +15,9 @@ mapping is by name:
 
 ArcFace flattens NHWC before fc1 in both packages, so fc1 needs no
 permutation beyond the transpose.
+
+``loop_state_from_jax`` carries a JAX ``ALinkLoop``'s state (student,
+Adadelta state, counters, queue) into a port loop.
 """
 
 from __future__ import annotations
@@ -72,3 +75,45 @@ def load_flax(module: nn.Module, params: Mapping) -> nn.Module:
     (``load_state_dict(strict=True)`` raises otherwise)."""
     module.load_state_dict(state_dict_from_flax(params), strict=True)
     return module
+
+
+def loop_state_from_jax(loop, m2_params: Mapping, opt_state, counters,
+                        buffers: Mapping | None = None) -> None:
+    """Fill the port ``ALinkLoop`` ``loop``'s state from a JAX loop's, given
+    as numpy trees (``jax.tree.map(np.asarray, ...)``): what the JAX loop's
+    ``save`` writes, handed over as arrays (its Orbax checkpoint directory is
+    not read here).
+
+    - ``m2_params``: the student's flax parameters (``state_dict_from_flax``);
+    - ``opt_state``: its optax state, ``inject_hyperparams(adadelta)``: the
+      ``ScaleByAdaDeltaState``'s ``e_g`` and ``e_x`` become
+      ``torch.optim.Adadelta``'s ``square_avg`` and ``acc_delta`` (the same
+      update, ``trainer.adadelta``), the injected learning rate the
+      optimizer's ``lr``, ``count`` its step;
+    - ``counters``: ``[active_count, un_size, pool_cursor, replay_draws,
+      completed iterations]`` (``ALinkLoop.load_counters``, which also
+      fast-forwards the port loop's replay generator);
+    - ``buffers``: ``buffer_left``/``_right``/``_y`` of the queue, or None
+      for an empty one.
+
+    The RNG cannot be carried: the JAX loop's threefry key has no Philox
+    counterpart, so the port loop's generators keep their own states.
+    """
+    m2 = loop.state.m2_state
+    m2.module.load_state_dict(state_dict_from_flax(m2_params), strict=True)
+    ada = next(s for s in opt_state.inner_state if hasattr(s, "e_g"))
+    square_avg = state_dict_from_flax(ada.e_g)
+    acc_delta = state_dict_from_flax(ada.e_x)
+    count = int(np.asarray(opt_state.count))
+    lr = float(np.asarray(opt_state.hyperparams["learning_rate"]).reshape(-1)[0])
+    opt = m2.optimizer
+    for name, p in m2.module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(count)),
+            "square_avg": square_avg[name].to(p.device, p.dtype),
+            "acc_delta": acc_delta[name].to(p.device, p.dtype)}
+    for group in opt.param_groups:
+        group["lr"] = lr
+    m2.step = count
+    loop.load_counters(counters)
+    loop.load_queue(buffers or {})

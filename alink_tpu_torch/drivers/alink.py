@@ -5,20 +5,24 @@
    (kernel K3 on a CUDA device);
 2. split the disguised pool into the M2 pretraining half and the loop pool;
 3. train-or-load the student M2 and the M1 committee;
-4. run the A-LINK loop and save the post-A-LINK head.
+4. run the A-LINK loop (resumable from ``loop_checkpoint``, supervised
+   through ``max_restarts`` restarts) and save the post-A-LINK head.
 
 The configuration is ``alink_tpu_torch.config.ALinkConfig``, with the
 reference's flag names; the default noise bank ends in "adversarial", the
 one-pixel DE attack on the live student.  The run is on the CUDA card
 unless ``--device cpu`` (or ``run_alink(device="cpu")``) asks for the CPU;
-without a card it raises.  Not ported yet: ``max_restarts``.
+without a card it raises.
 
     python -m alink_tpu_torch.drivers.alink --synthetic_people 8
+    python -m alink_tpu_torch.drivers.alink --synthetic_people 8 \
+        --loop_checkpoint ckpt/loop --checkpoint_every 1 --max_restarts 2
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import tempfile
 import typing
@@ -27,10 +31,11 @@ import torch
 
 from alink_tpu_torch import train as T
 from alink_tpu_torch.active.committee import MODEL_CHANNELS
-from alink_tpu_torch.active.loop import NOT_PORTED, ALinkLoop, ALinkState
+from alink_tpu_torch.active.loop import ALinkLoop, ALinkState
 from alink_tpu_torch.config import ALinkConfig
 from alink_tpu_torch.drivers import common
 from alink_tpu_torch.ops.pairwise import pair_scores
+from alink_tpu_torch.utils.resilience import run_with_retries
 
 
 def add_config_flags(parser: argparse.ArgumentParser, config_cls) -> None:
@@ -89,9 +94,16 @@ def run_alink(config: ALinkConfig, *, featurize=None,
     epoch) defaults to ``config.train_steps``.  Initialisations and
     shuffles draw from ``generator`` (CPU), the loop's noise and attacks
     from a generator on ``device``; neither can match ``jax.random``.
+
+    ``config.loop_checkpoint`` makes the loop resumable (it restores from
+    there and saves every ``config.checkpoint_every`` slabs);
+    ``config.max_restarts`` > 0 supervises it with ``run_with_retries``,
+    each attempt a fresh loop that resumes from the checkpoint.
     """
-    if config.max_restarts > 0:
-        raise NotImplementedError(NOT_PORTED.format("max_restarts"))
+    # Device resolution stays outside the supervised attempt (and
+    # ALinkConfig checks max_restarts against loop_checkpoint when it is
+    # made): resolve_device raises RuntimeError, which is retryable, and
+    # "no CUDA device" must not be retried max_restarts times.
     device = common.resolve_device(device, "run_alink")
     if n_steps is None:
         n_steps = config.train_steps
@@ -135,15 +147,47 @@ def run_alink(config: ALinkConfig, *, featurize=None,
     # Both model channels need the end-to-end predict function.
     adv = (make_adversarial_predict(featurize)
            if set(MODEL_CHANNELS) & set(config.noise) else None)
-    replay = common.replay_generator(config.seed + 2, data.plain_feats,
-                                     data.imp_feats, config.batch_size)
-    loop = ALinkLoop(config, pool_uint8=True, featurize=featurize,
-                     committee=committee, m2_state=m2, replay_gen=replay,
-                     host_generator=g, adversarial_predict=adv,
-                     device=device)
-    if config.loop_checkpoint:
-        raise NotImplementedError(NOT_PORTED.format("loop_checkpoint"))
-    state = loop.run(data.plain_raw, dig_post_raw)
+    # TrainState is updated in place (the JAX state is immutable), so an
+    # attempt that finetuned before its first checkpoint leaves M2 trained;
+    # and the host generator is shared with pretraining (JAX has a separate,
+    # immutable loop key).  Snapshot M2 (module and optimizer) and both
+    # generators once, and reset them at the start of every attempt; a
+    # checkpoint's states then override them in restore().
+    m2_module = {k: v.detach().clone()
+                 for k, v in m2.module.state_dict().items()}
+    m2_optimizer = copy.deepcopy(m2.optimizer.state_dict())
+    m2_step = m2.step
+    host_state = g.get_state()
+    loop_gen = torch.Generator(device).manual_seed(config.seed)
+    loop_gen_state = loop_gen.get_state()
+
+    def attempt(attempt_idx: int) -> ALinkState:
+        m2.module.load_state_dict(m2_module)
+        # load_state_dict keeps the tensors it is given (the optimizer's
+        # in-place steps would then write into the snapshot): a copy.
+        m2.optimizer.load_state_dict(copy.deepcopy(m2_optimizer))
+        m2.step = m2_step
+        g.set_state(host_state)
+        loop_gen.set_state(loop_gen_state)
+        # A fresh replay generator per attempt: restore fast-forwards it to
+        # the checkpointed position, which a generator partly consumed by a
+        # failed attempt cannot rewind to.
+        replay = common.replay_generator(config.seed + 2, data.plain_feats,
+                                         data.imp_feats, config.batch_size)
+        loop = ALinkLoop(config, pool_uint8=True, featurize=featurize,
+                         committee=committee, m2_state=m2, replay_gen=replay,
+                         generator=loop_gen, host_generator=g,
+                         adversarial_predict=adv, device=device)
+        return loop.run(data.plain_raw, dig_post_raw,
+                        checkpoint_path=config.loop_checkpoint or None,
+                        checkpoint_every=config.checkpoint_every)
+
+    if config.max_restarts > 0:
+        # Supervised restarts (SURVEY.md section 5.3): retryable faults
+        # resume from loop_checkpoint with the trajectory intact.
+        state = run_with_retries(attempt, max_restarts=config.max_restarts)
+    else:
+        state = attempt(0)
     print(f">> Active Count: {state.active_count} out of {state.un_size}")
     T.save(config.out_model, state.m2_state.module.state_dict())
     return state

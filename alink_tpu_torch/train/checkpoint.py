@@ -1,9 +1,12 @@
 """Checkpoints of parameter trees (counterpart of
 ``alink_tpu/train/checkpoint.py``).
 
-A tree (a state dict, or nested dicts of tensors and numpy arrays) is
-written with ``torch.save`` to ``<path>/tree.pt``, atomically (a temporary
-file, then ``os.replace``).  ``maybe_restore`` keeps the reference's
+A tree (a state dict, or nested dicts and lists of tensors, numpy arrays
+and Python scalars: an optimizer's ``state_dict()``, a generator's
+``get_state()`` byte tensor) is written with ``torch.save`` to
+``<path>/tree.pt``, atomically (a temporary file, then ``os.replace``), and
+read back with ``torch.load(weights_only=True)``: tensors, containers and
+scalars only, never an arbitrary pickled object.  ``maybe_restore`` keeps the reference's
 ``maybeLoadFromMemory`` contract: a missing or unreadable checkpoint gives
 ``(like, False)`` and never raises.
 """
@@ -16,6 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from alink_tpu_torch.utils.tree import map_leaves
+
 _FILE = "tree.pt"
 
 
@@ -24,11 +29,11 @@ def _file(path: str) -> str:
 
 
 def _to_cpu(tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, np.ndarray):
-        return torch.from_numpy(tree.copy())
-    return tree.detach().cpu().clone()
+    """A snapshot of ``tree`` on the CPU (tensors copied, so later in-place
+    updates of the live tensors do not reach the file)."""
+    return map_leaves(lambda x: torch.from_numpy(x.copy())
+                      if isinstance(x, np.ndarray)
+                      else x.detach().cpu().clone(), tree)
 
 
 def save(path: str, tree: Any) -> None:

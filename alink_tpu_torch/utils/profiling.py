@@ -3,13 +3,15 @@
 
 CUDA work is asynchronous: a phase on a CUDA device synchronises it before
 its clock stops, so the phase is charged its own device work and not the
-next phase's first wait.  Profiler traces are taken with ``torch.profiler``
-directly; the JAX ``trace`` helper is not ported.
+next phase's first wait.  ``trace`` wraps ``torch.profiler`` (the
+counterpart of ``jax.profiler.trace``) and writes a Chrome trace, viewable
+in Perfetto or ``chrome://tracing``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -49,3 +51,16 @@ class Timings:
 
     def as_dict(self) -> dict[str, float]:
         return dict(self.totals)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace (host ops, and CUDA kernels when a
+    card is present) into ``<log_dir>/trace.json``; yields the profiler."""
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

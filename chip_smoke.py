@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, the A2 channel, the
-int8 conv and the DFW evaluation chain once on one NVIDIA GPU.
+int8 conv, the DFW evaluation chain and the loop's resume, supervision and
+augmentation once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -81,7 +82,21 @@ i. the DFW evaluation chain: ``tools.evaluate --prefix`` on a synthetic
    and stats of the three ROC cases) timed by step as "DFW evaluation s";
    ``eval_regression`` on ``EVAL_r05.json``'s protocol with its stage
    AUC / EER and 15 ordering flags beside the file's (a flag that differs
-   is reported, not hidden).
+   is reported, not hidden);
+j. resume, restart and augment at full width, with (f)'s configuration and
+   cuts (the M2 and committee that (f) saved loaded in every run):
+   ``run_alink(augment=True, loop_checkpoint=A)`` with K2's and K3's
+   counters zeroed just before and read just after (K2 six launches per
+   finetune: 3 variants x 2 halves); the same run with ``max_restarts=1``
+   and a RuntimeError injected into its second slab once that slab's
+   finetune has trained M2 in place and moved both generators, whose end
+   (counters, logs, M2 and optimizer state) must equal the first run's bit
+   for bit;
+   K2 against its plain version at augment's own shape (the first
+   finetune's queried pairs, (q, 224, 224, 3) f32, nearest/nearest, max
+   |diff| 0) and timed beside its bound; ``custom_train`` through a
+   ``DevicePrefetcher`` (pinned host batches copied on a side stream) bit-
+   equal to the same loop over the batches fed directly.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -771,6 +786,14 @@ F_BATCH_SEND = 4       # queue size that triggers a finetune, default 64
 F_DEVICE_BATCH = 64    # pairs per chunk, default 1,024
 F_NOISE = ("gaussian", "saltpepper", "poisson", "speckle")  # DE: phase (g)
 F_FEAT_BATCH = 128
+F_CUTS = (f"synthetic_people {F_PEOPLE} (DFW: ~1,000 people)",
+          f"dig_epochs 40 -> {F_DIG_EPOCHS}",
+          f"undig_epochs 60 -> {F_UNDIG_EPOCHS}",
+          f"train_steps 320000 -> {F_TRAIN_STEPS}",
+          f"alink_bs 16 -> {F_ALINK_BS}",
+          f"batch_send 64 -> {F_BATCH_SEND}",
+          f"device_batch 1024 -> {F_DEVICE_BATCH}",
+          "noise: the default bank without 'adversarial' (phase g)")
 # Featurizer with K3 against the same model with K3's plain version: both
 # round at the same points, f32 sums in other orders.
 F_FEAT_LIMIT = 1e-2
@@ -778,7 +801,8 @@ F_FEAT_LIMIT = 1e-2
 
 def phase_alink(dev, smi: str):
     """(f): ``run_alink`` at full width, then ``test_accuracy`` over the
-    plain features; returns the kernels' launch counts in ``run_alink``."""
+    plain features; returns the kernels' launch counts in ``run_alink``, and
+    its configuration and finetune s/iteration for phase (j)."""
     import tempfile
 
     from alink_tpu_torch import train as T
@@ -802,14 +826,7 @@ def phase_alink(dev, smi: str):
         out_model=str(out / "postALINK"),
         ensemble_basepath=str(out / "ensemble"),
         disguised_basemodel=str(out / "disguisedModel"))
-    for line in (f"synthetic_people {F_PEOPLE} (DFW: ~1,000 people)",
-                 f"dig_epochs 40 -> {F_DIG_EPOCHS}",
-                 f"undig_epochs 60 -> {F_UNDIG_EPOCHS}",
-                 f"train_steps 320000 -> {F_TRAIN_STEPS}",
-                 f"alink_bs 16 -> {F_ALINK_BS}",
-                 f"batch_send 64 -> {F_BATCH_SEND}",
-                 f"device_batch 1024 -> {F_DEVICE_BATCH}",
-                 "noise: the default bank without 'adversarial' (phase g)"):
+    for line in F_CUTS:
         print(f"alink cut: {line}", flush=True)
     t0 = time.perf_counter()
     featurize, model = common.make_resnet50_featurizer(
@@ -896,7 +913,8 @@ def phase_alink(dev, smi: str):
           f"ms/batch, min {s['min_ms']:.2f}, max {s['max_ms']:.2f}; "
           f"main-thread CPU {s['cpu_median_ms']:.2f} ms/batch), "
           f"VGGFace-ResNet50 bf16 {F_IMAGE}x{F_IMAGE} on {smi}", flush=True)
-    return counts
+    finetuned = sum(lg.finetuned for lg in logs)
+    return counts, cfg, tm.get("finetune", 0.0) / max(finetuned, 1)
 
 
 # Phase (g): the A2 channel at full width.  Cuts, each printed:
@@ -1485,6 +1503,223 @@ def phase_eval(dev, smi: str) -> dict:
           "eval_regression: the baseline's budget differs from alink's")
     return counts
 
+# Phase (j): resume, supervised restart and augment at full width: phase
+# (f)'s configuration and cuts with augment=True and loop_checkpoint.  Every
+# run loads the M2 and the committee that (f) pretrained and saved, so the
+# staging (and the host generator's state when the loop starts) is the same
+# in every run compared.  A resumed run equals an uninterrupted one only if
+# every op of a chunk and of the finetune is deterministic from run to run:
+# the hand-written kernels are, cudnn.benchmark stays off, and the noise
+# bank's scatter-add (poisson) sums integer counts, exact in any order.
+J_INJECTED = "injected fault after slab 2's finetune"
+J_PREFETCH_STEPS = 16     # custom_train batches through the prefetcher
+J_PREFETCH_BATCH = 256
+
+
+def phase_resume(dev, smi: str, f_cfg, f_finetune_s: float) -> dict:
+    """(j): ``run_alink(augment=True, loop_checkpoint=A)`` uninterrupted
+    (K2 and K3 counted), the same run supervised with a fault injected into
+    its second slab after its finetune (``max_restarts=1``) and held to the
+    first bit for bit,
+    K2 at augment's own shape against its plain version, and custom_train
+    through a ``DevicePrefetcher`` held to the same loop fed directly.
+    Returns the K2 and K3 launches of the uninterrupted run."""
+    import dataclasses
+
+    from alink_tpu_torch.active import loop as loop_mod
+    from alink_tpu_torch.data import DevicePrefetcher
+    from alink_tpu_torch.drivers import alink as alink_mod
+    from alink_tpu_torch.drivers import common
+    from alink_tpu_torch.models import SiameseHead
+    from alink_tpu_torch.ops import augment, image, resblock
+    from alink_tpu_torch.train import TrainState, custom_train
+
+    t_phase = time.perf_counter()
+    out = Path(f_cfg.out_model).parent
+    for line in F_CUTS + ("augment=True, loop_checkpoint, checkpoint_every "
+                          "1; M2 and committee loaded from (f)'s pretraining",):
+        print(f"resume cut: {line}", flush=True)
+    featurize, _ = common.make_resnet50_featurizer(
+        torch.Generator().manual_seed(SEED), device=dev)
+    cfg_a = dataclasses.replace(f_cfg, augment=True,
+                                loop_checkpoint=str(out / "loop_a"),
+                                out_model=str(out / "post_a"))
+    k2 = image.affine_warp_batch_kernel
+    k3 = resblock.bottleneck_s1_kernel
+
+    # 1. Ground truth, uninterrupted; augment's inputs and matrices recorded.
+    seen = []
+    real_augment = loop_mod.augment_pairs
+
+    def recorded(g, left, right, labels):
+        draws = {}
+        draw = augment.torch_draws(g)
+
+        def keep(block, variant, side, n, h, w):
+            draws[block, side] = (variant,) + draw(block, variant, side, n,
+                                                   h, w)
+            return draws[block, side][1:]
+
+        seen.append((left, right, draws))
+        return real_augment(g, left, right, labels, draw=keep)
+
+    loop_mod.augment_pairs = recorded
+    k2.launches = k3.launches = 0
+    try:
+        t0 = time.perf_counter()
+        gt = alink_mod.run_alink(cfg_a, featurize=featurize, device=dev)
+        torch.cuda.synchronize()
+        t_gt = time.perf_counter() - t0
+    finally:
+        loop_mod.augment_pairs = real_augment
+    counts = {"affine_warp": k2.launches, "bottleneck": k3.launches}
+    n_ft = sum(lg.finetuned for lg in gt.logs)
+    print(f"resume: run_alink(augment=True) {t_gt:.1f} s; launches {counts}; "
+          f"{n_ft} finetune events", flush=True)
+    check(n_ft > 0 and len(seen) == n_ft, "augment: no finetune ran")
+    check(counts["affine_warp"] == 6 * n_ft,
+          f"K2 launched {counts['affine_warp']} times, not 6 x {n_ft}")
+    check(counts["bottleneck"] > 0, "K3 was not launched by the augmented run")
+    tm = gt.timings.as_dict()
+    n_it = len(gt.logs)
+    print("resume: augmented per-phase s/iteration "
+          + ", ".join(f"{k} {v / n_it:.4f}" for k, v in
+                      sorted(tm.items(), key=lambda kv: -kv[1]))
+          + f"; finetune s/event {tm['finetune'] / n_ft:.4f} (phase (f) "
+          f"without augment {f_finetune_s:.4f}); save s/call "
+          f"{tm['save'] / gt.timings.counts['save']:.4f} on {smi}",
+          flush=True)
+
+    # 2. Supervised restart: one RuntimeError in the second slab, after the
+    # first checkpoint, raised once its finetune has trained M2 in place and
+    # moved both generators; the second attempt resets them from the
+    # driver's snapshots and resumes from the checkpoint.
+    check(gt.logs[1].finetuned, "resume: slab 2 ran no finetune to fault in")
+    attempts, faults = [], []
+
+    class Flaky(loop_mod.ALinkLoop):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            attempts.append(self)
+
+        def _finetune(self, *a, **k):
+            super()._finetune(*a, **k)
+            if len(self.logs) == 1 and not faults:
+                faults.append(len(attempts))
+                raise RuntimeError(J_INJECTED)
+
+    cfg_b = dataclasses.replace(cfg_a, loop_checkpoint=str(out / "loop_b"),
+                                out_model=str(out / "post_b"), max_restarts=1)
+    alink_mod.ALinkLoop = Flaky
+    k2.launches = k3.launches = 0
+    try:
+        t0 = time.perf_counter()
+        sup = alink_mod.run_alink(cfg_b, featurize=featurize, device=dev)
+        torch.cuda.synchronize()
+        t_sup = time.perf_counter() - t0
+    finally:
+        alink_mod.ALinkLoop = loop_mod.ALinkLoop
+    st = sup.timings
+    print(f"resume: supervised run {t_sup:.1f} s, attempts {len(attempts)}, "
+          f"'{J_INJECTED}' raised in attempt {faults}; K2 {k2.launches}, "
+          f"K3 {k3.launches} launches; restore {st.totals['restore']:.4f} s, "
+          f"save s/call {st.totals['save'] / st.counts['save']:.4f}",
+          flush=True)
+    check(len(attempts) == 2 and faults == [1] and sup is attempts[1].state,
+          f"supervision: {len(attempts)} attempts, faults in {faults}")
+    check(sup.logs == gt.logs[len(gt.logs) - len(sup.logs):]
+          and len(sup.logs) == len(gt.logs) - 1,
+          f"resumed logs {sup.logs} != the tail of {gt.logs}")
+    for f in ("active_count", "un_size", "pool_cursor", "replay_draws"):
+        check(getattr(sup, f) == getattr(gt, f),
+              f"{f}: {getattr(sup, f)} != {getattr(gt, f)}")
+    ga = gt.m2_state.module.state_dict()
+    gb = sup.m2_state.module.state_dict()
+    deltas = {k: maxdiff(ga[k], gb[k]) for k in ga}
+    oa = gt.m2_state.optimizer.state_dict()
+    ob = sup.m2_state.optimizer.state_dict()
+    opt_same = oa["param_groups"] == ob["param_groups"] and all(
+        torch.equal(oa["state"][i][k], ob["state"][i][k])
+        for i in oa["state"] for k in oa["state"][i])
+    print(f"resume: M2 after the restart vs uninterrupted: max|diff| per "
+          f"tensor {max(deltas.values()):.3e}; optimizer state equal "
+          f"{opt_same}", flush=True)
+    check(all(torch.equal(ga[k], gb[k]) for k in ga),
+          f"M2 differs after the restart: {deltas}")
+    check(opt_same, "optimizer state differs after the restart")
+
+    # 3. K2 at augment's own shape: the first finetune's queried pairs and
+    # their matrices, against the plain version.
+    left, right, draws = seen[0]
+    q = left.shape[0]
+    worst, cases = 0.0, []
+    for (block, side), (variant, A, t) in sorted(draws.items()):
+        x = (left, right)[side]
+        Ms = augment._pullback_to_forward(F_IMAGE, F_IMAGE, A, t,
+                                          variant != "shift").contiguous()
+        got = k2(x, Ms, (F_IMAGE, F_IMAGE), "nearest", "nearest")
+        want = image.affine_warp_batch_reference(x, Ms, (F_IMAGE, F_IMAGE),
+                                                 "nearest", "nearest")
+        worst = max(worst, maxdiff(got, want))
+        cases.append((x, Ms))
+    check(worst == 0.0, f"K2 at the augment shape: max|diff| {worst}")
+    x, Ms = cases[0]
+    ms, call = kernel_ms(
+        lambda: k2(x, Ms, (F_IMAGE, F_IMAGE), "nearest", "nearest"), k2)
+    plain = cuda_ms(lambda: image.affine_warp_batch_reference(
+        x, Ms, (F_IMAGE, F_IMAGE), "nearest", "nearest"), iters=5)
+    bound = 2 * x.numel() * 4 / H100_BYTES_PER_S * 1e3
+    print(f"K2 augment ({q}, {F_IMAGE}, {F_IMAGE}, 3) f32 nearest/nearest, "
+          f"{len(cases)} warps: max|diff| {worst:.3e} vs plain; kernel "
+          f"{ms:.4f} ms ({call:.4f} per call from Python), plain "
+          f"{plain:.4f} ms, bound {bound:.4f} ms (bytes) on {smi}",
+          flush=True)
+
+    # 4. custom_train through a DevicePrefetcher of pinned host batches
+    # against the same loop fed the batches directly.
+    def batches():
+        rng = np.random.default_rng(SEED)
+        while True:
+            yield ((rng.random((J_PREFETCH_BATCH, 2048), np.float32),
+                    rng.random((J_PREFETCH_BATCH, 2048), np.float32)),
+                   (rng.random(J_PREFETCH_BATCH) > 0.5).astype(np.int64))
+
+    def train(it):
+        g = torch.Generator().manual_seed(SEED)
+        st = TrainState(SiameseHead(2048, generator=g, device=dev))
+        return custom_train(st, it, epochs=1, batch_size=J_PREFETCH_BATCH,
+                            generator=g,
+                            n_steps=J_PREFETCH_STEPS * J_PREFETCH_BATCH)
+
+    placed = []
+
+    def inspect(pf):
+        for item in pf:
+            placed.extend(t.device.type for t in (*item[0], item[1]))
+            yield item
+
+    s_raw, l_raw = train(batches())
+    with DevicePrefetcher(batches(), depth=2, device=dev) as pf:
+        s_pre, l_pre = train(inspect(pf))
+        consumer = torch.cuda.current_stream(dev)
+        side_stream = pf.copy_stream is not None and (
+            pf.copy_stream.cuda_stream != consumer.cuda_stream)
+    torch.cuda.synchronize()
+    same = l_raw == l_pre and all(
+        torch.equal(a, b) for a, b in zip(s_raw.module.parameters(),
+                                          s_pre.module.parameters()))
+    print(f"prefetch: custom_train over {J_PREFETCH_STEPS} batches of "
+          f"{J_PREFETCH_BATCH} pairs: prefetched == direct {same}; "
+          f"{len(placed)} tensors, devices {sorted(set(placed))}; copy on a "
+          f"side stream {side_stream}", flush=True)
+    check(same, "custom_train through the prefetcher differs")
+    check(len(placed) == 3 * J_PREFETCH_STEPS
+          and set(placed) == {"cuda"}, f"prefetched devices {placed}")
+    check(side_stream, "the prefetcher did not copy on a side stream")
+    print(f"resume: phase (j) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
 
 def rng_images(n: int) -> np.ndarray:
     return np.random.default_rng(SEED).uniform(
@@ -1630,19 +1865,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     numbers["bottleneck"] = phase_k3(dev, g)
-    alink_counts = phase_alink(dev, smi)
+    alink_counts, alink_cfg, f_finetune_s = phase_alink(dev, smi)
     torch.cuda.empty_cache()
     a2_launches = phase_a2(dev, smi)
     torch.cuda.empty_cache()
     counts["qconv"], numbers["qconv"] = phase_k4(dev, g, smi)
     torch.cuda.empty_cache()
     eval_counts = phase_eval(dev, smi)
+    torch.cuda.empty_cache()
+    resume_counts = phase_resume(dev, smi, alink_cfg, f_finetune_s)
     # Each kernel's count is the one from the main paths that run it:
-    # serving and evaluation for K1, serving for K2, training, the A2
-    # channel and evaluation for K3, its own op path for K4.
+    # serving and evaluation for K1, serving and the augmented loop for K2,
+    # training, the A2 channel, evaluation and the augmented loop for K3,
+    # its own op path for K4.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
-                            + eval_counts["bottleneck"])
+                            + eval_counts["bottleneck"]
+                            + resume_counts["bottleneck"])
     counts["pair_score"] += eval_counts["pair_score"]
+    counts["affine_warp"] += resume_counts["affine_warp"]
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),

@@ -466,25 +466,7 @@ def test_run_alink_with_the_plain_noise_bank(tmp_path):
     assert os.path.isfile(tmp_path / "t" / "ens2" / "tree.pt")
 
 
-# -- what waits --------------------------------------------------------------
-
-def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        talink.run_alink(_cfg(tmp_path, "t", max_restarts=1,
-                              loop_checkpoint="x"), device="cpu")
-    _, _, tl, _ = _loops()
-    for kw in (dict(augment=True), dict(debug_nans=True),
-               dict(device_batch="auto")):
-        cfg = dataclasses.replace(tl.config, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloop_mod.ALinkLoop(cfg, featurize=_flat,
-                                committee=tl.committee,
-                                m2_state=tl.state.m2_state)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.save(str(tmp_path / "loop"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.run(*_slabs(), checkpoint_path=str(tmp_path / "loop"))
-
+# -- imports -----------------------------------------------------------------
 
 def test_training_modules_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"

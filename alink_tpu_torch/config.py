@@ -1,6 +1,6 @@
-"""The A-LINK loop configuration (counterpart of ``alink_tpu/config.py``'s
-``ALinkConfig``): the same fields, defaults and validation, kept here so
-that the port imports nothing of the JAX package.
+"""The A-LINK loop configurations (counterpart of ``alink_tpu/config.py``'s
+``ALinkConfig`` and ``ALinkArcConfig``): the same fields, defaults and
+validation, kept here so that the port imports nothing of the JAX package.
 
 Knob names are the reference's flag names (``code/ALINK.py:37-62``).  The
 TPU-only knobs (``mesh_shape``, ``featurize_scan_units``, ``device_batch=
@@ -94,3 +94,35 @@ class ALinkConfig:
             raise ValueError("eps must be in [0, 0.5)")
         if self.max_restarts > 0 and not self.loop_checkpoint:
             raise ValueError("max_restarts requires loop_checkpoint")
+
+
+@dataclasses.dataclass(frozen=True)
+class ALinkArcConfig(ALinkConfig):
+    """The ArcFace driver's configuration (the reference's ALINK_arc.py):
+    112x112 inputs, 512-d L2-normalised embeddings, perlin in the noise
+    bank, its own model paths, and the LResNet depth of the embedder
+    (34, 50 or 100).  ``embed_scan_units`` is the JAX package's
+    compile-time knob; it is accepted and ignored."""
+
+    out_model: str = "models/postALINK_arc"
+    ensemble_basepath: str = "models/ensemble_arc"
+    disguised_basemodel: str = "models/disguisedModel_arc"
+    noise: Sequence[str] = (
+        "gaussian",
+        "saltpepper",
+        "poisson",
+        "perlin",
+        "speckle",
+        "adversarial",
+    )
+    image_res: tuple[int, int] = (112, 112)
+    feature_res: int = 512
+    embed_depth: int = 100
+    embed_scan_units: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.embed_depth not in (34, 50, 100):
+            raise ValueError(
+                f"embed_depth must be 34, 50 or 100 (the LResNet zoo), "
+                f"got {self.embed_depth}")

@@ -3,7 +3,9 @@
 
 The embedder and the cascade towers carry their own weights and device;
 images may arrive as numpy arrays or tensors on any device and are moved
-to the embedder's device.  The genderage methods are not ported yet.
+to the embedder's device.  The cascade's options (crowd budgets, L-Net,
+crop dtype) come with ``cfg`` through ``detect_faces``.  JAX's
+``__setattr__`` only drops stale jit traces and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 from alink_tpu_torch.detect.cascade import (CascadeConfig, Detections,
                                             MTCNNParams, align_faces,
                                             detect_faces)
+from alink_tpu_torch.models.genderage import decode_ga
 from alink_tpu_torch.ops.image import resize
 
 
@@ -101,3 +104,17 @@ class FaceModel:
         """(embeddings, found)."""
         chips, found = self._best_chips(self._to_device(images))
         return self.embedder(chips), found
+
+    @torch.no_grad()
+    def get_ga(self, aligned, ga_model: nn.Module
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(gender, age) of aligned chips from a genderage network
+        (``GenderAgeResNet50``, or any module giving (N, 202))."""
+        return decode_ga(ga_model(self._to_device(aligned)))
+
+    @torch.no_grad()
+    def get_ga_from_embedding(self, aligned, ga_head: nn.Module
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(gender, age) from a ``GenderAgeHead`` over this model's own
+        embeddings: one trunk forward serves both tasks."""
+        return decode_ga(ga_head(self.get_feature(aligned)))

@@ -3,8 +3,7 @@
 VALID convolutions, channel-wise PReLU, Caffe ceil-mode max pooling and
 dense heads over the NHWC flatten.  Inputs are NHWC, already scaled by
 ``preprocess.mtcnn``; the towers run in ``dtype`` (bf16 by default) and
-their output layers in f32.  ``LNet`` (landmark refinement) is not ported
-yet.
+their output layers in f32.
 """
 
 from __future__ import annotations
@@ -109,3 +108,26 @@ class ONet(_Tower):
         prob = torch.softmax(_dense(x, self.dense[1], torch.float32), dim=-1)
         return (prob, _dense(x, self.dense[2], torch.float32),
                 _dense(x, self.dense[3], torch.float32))
+
+
+class LNet(_Tower):
+    """Landmark refinement over five 24x24 patches stacked on the channel
+    axis (N, 24, 24, 15) -> per-landmark (dx, dy) in [0, 1] patch
+    coordinates (N, 5, 2).  ``prelu.3`` follows ``dense.0``, as flax
+    creates them."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__([(15, 28, 3), (28, 48, 3), (48, 64, 2)],
+                         [28, 48, 64, 256],
+                         [(3 * 3 * 64, 256)] + [(256, 2)] * 5,
+                         dtype, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        x = _ceil_pool(self._act(x, 0), 3, 2)
+        x = _ceil_pool(self._act(x, 1), 3, 2)
+        x = _nhwc_flat(self._act(x, 2))
+        x = self.prelu[3](_dense(x, self.dense[0], self.dtype)).float()
+        return torch.stack([torch.sigmoid(_dense(x, d, torch.float32))
+                            for d in self.dense[1:]], dim=1)

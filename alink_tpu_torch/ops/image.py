@@ -1,10 +1,12 @@
 """Batched image geometry: resize, affine warp, crop-and-resize.
 
 Counterpart of ``alink_tpu/ops/image.py``.  Layouts are NHWC (or HWC) as
-there.  ``affine_warp_batch`` dispatches on the device of its input: a CPU
-tensor takes ``affine_warp_batch_reference`` (plain PyTorch), a CUDA tensor
-launches the hand-written kernel ``csrc/affine_warp.cu`` (which replaces
-the TPU kernel ``alink_tpu/ops/image.py:_warp_kernel``).
+there.  ``affine_warp_batch`` (and ``affine_warp``, one image) dispatches
+on the device of its input: a CPU tensor takes
+``affine_warp_batch_reference`` (plain PyTorch), a CUDA tensor launches
+the hand-written kernel ``csrc/affine_warp.cu`` (which replaces the TPU
+kernel ``alink_tpu/ops/image.py:_warp_kernel``).  The crops are plain
+PyTorch products on every device, as they are XLA einsums in JAX.
 """
 
 from __future__ import annotations
@@ -187,6 +189,12 @@ def affine_warp_batch(
     return affine_warp_batch_reference(imgs, Ms, out_size, border, interp)
 
 
+def affine_warp(img: torch.Tensor, M: torch.Tensor, out_size: tuple[int, int],
+                border: str = "zero") -> torch.Tensor:
+    """One HWC image through ``affine_warp_batch`` (cv2.warpAffine)."""
+    return affine_warp_batch(img[None], M[None], out_size, border=border)[0]
+
+
 def _crop_weights(boxes: torch.Tensor, out_size: tuple[int, int], h: int,
                   w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Separable bilinear tap weights for (..., K, 4) boxes: wy (..., K,
@@ -210,10 +218,37 @@ def _crop_weights(boxes: torch.Tensor, out_size: tuple[int, int], h: int,
     return wy, wx
 
 
+def _as(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` (None: f32) and held in f32, so that the
+    products that follow accumulate in f32 as XLA's
+    ``preferred_element_type=float32`` makes them."""
+    return x.float() if dtype is None else x.to(dtype).float()
+
+
+def _crop_epilogue(out: torch.Tensor, offset: float | None,
+                   scale: float | None, out_dtype: torch.dtype | None,
+                   in_dtype: torch.dtype) -> torch.Tensor:
+    """``(out - offset) * scale`` on the f32 result, then the cast: to
+    ``out_dtype`` where given; an integer input whose values the fold moved
+    out of its range stays f32; otherwise back to the input's dtype."""
+    if offset is not None:
+        out = out - offset
+    if scale is not None:
+        out = out * scale
+    if out_dtype is not None:
+        return out.to(out_dtype)
+    if (offset is not None or scale is not None) and \
+            not in_dtype.is_floating_point:
+        return out
+    return _cast_like(out, in_dtype)
+
+
 def crop_and_resize(
     img: torch.Tensor,
     boxes: torch.Tensor,
     out_size: tuple[int, int],
+    compute_dtype: torch.dtype | None = None,
+    out_dtype: torch.dtype | None = None,
     offset: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
@@ -223,20 +258,56 @@ def crop_and_resize(
 
     ``img`` (..., H, W, C) with ``boxes`` (..., K, 4) -> (..., K, oh, ow,
     C): the leading dims are the batch (the reference's single image is
-    the case with none).  ``offset``/``scale`` fold the mtcnn centering
-    into the f32 result, which then stays f32 (the fold leaves an integer
-    input's range); without it the result takes the input's dtype.  The
-    taps are f32: the TPU's bf16 ``compute_dtype``/``out_dtype`` are not
-    ported.
+    the case with none).  The two separable passes round their operands
+    to ``compute_dtype`` (f32 if None) and accumulate in f32;
+    ``offset``/``scale`` fold the mtcnn centering into the f32 result
+    before the cast to ``out_dtype`` (``_crop_epilogue``).
     """
     h, w = img.shape[-3], img.shape[-2]
     wy, wx = _crop_weights(boxes, out_size, h, w)
-    rows = torch.einsum("...koh,...hwc->...kowc", wy, img.float())
-    out = torch.einsum("...kpw,...kowc->...kopc", wx, rows)
-    if offset is None and scale is None:
-        return _cast_like(out, img.dtype)
-    if offset is not None:
-        out = out - offset
-    if scale is not None:
-        out = out * scale
-    return out
+    cdt = compute_dtype
+    rows = torch.einsum("...koh,...hwc->...kowc", _as(wy, cdt), _as(img, cdt))
+    out = torch.einsum("...kpw,...kowc->...kopc", _as(wx, cdt),
+                       _as(rows, cdt))
+    return _crop_epilogue(out, offset, scale, out_dtype, img.dtype)
+
+
+# Bytes of gathered source images per y-pass chunk of
+# ``crop_and_resize_gather``: the whole gather at the crowd defaults (4,096
+# candidates of 160x160x3) would hold 1.26 GB in f32.
+_GATHER_BYTES = 64 << 20
+
+
+def crop_and_resize_gather(
+    images: torch.Tensor,
+    boxes: torch.Tensor,
+    img_ids: torch.Tensor,
+    out_size: tuple[int, int],
+    compute_dtype: torch.dtype | None = None,
+    out_dtype: torch.dtype | None = None,
+    offset: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Crops of candidates pooled across a batch: ``images`` (N, H, W, C),
+    ``boxes`` (T, 4), ``img_ids`` (T,) -> (T, oh, ow, C), candidate t
+    cropped from image ``img_ids[t]``.  Same numerics as
+    ``crop_and_resize``.  Ids past the batch read its last image (a JAX
+    gather clamps; the cascade gives them to invalid candidates only).
+
+    The y-pass multiplies each candidate's row weights into its source
+    image, gathered a chunk of candidates at a time (``_GATHER_BYTES``), so
+    the gathered copy never holds more than one chunk.
+    """
+    n, h, w, c = images.shape
+    t = boxes.shape[0]
+    wy, wx = _crop_weights(boxes, out_size, h, w)
+    cdt = compute_dtype
+    flat = _as(images, cdt).reshape(n, h, w * c)
+    ids = img_ids.clamp(0, n - 1)
+    step = max(1, _GATHER_BYTES // (h * w * c * 4))
+    rows = torch.cat([torch.bmm(_as(wy[i:i + step], cdt),
+                                flat[ids[i:i + step]])
+                      for i in range(0, max(t, 1), step)])
+    rows = rows.reshape(t, out_size[0], w, c)
+    out = torch.einsum("tpw,towc->topc", _as(wx, cdt), _as(rows, cdt))
+    return _crop_epilogue(out, offset, scale, out_dtype, images.dtype)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, the A2 channel, the
-int8 conv, the DFW evaluation chain and the loop's resume, supervision and
-augmentation once on one NVIDIA GPU.
+int8 conv, the DFW evaluation chain, the loop's resume, supervision and
+augmentation, the rest of detect and serving and the ArcFace driver once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -96,7 +97,27 @@ j. resume, restart and augment at full width, with (f)'s configuration and
    finetune's queried pairs, (q, 224, 224, 3) f32, nearest/nearest, max
    |diff| 0) and timed beside its bound; ``custom_train`` through a
    ``DevicePrefetcher`` (pinned host batches copied on a side stream) bit-
-   equal to the same loop over the batches fed directly.
+   equal to the same loop over the batches fed directly;
+k. the rest of detect and serving, and the ArcFace driver, with (c)'s
+   photos and batch and open thresholds: ``crowd()`` with totals that
+   cover every candidate against ``worst_case()`` on f32 towers (valid
+   equal, boxes and landmarks within 1e-3 px); the default ``crowd()``
+   over budget, its stage-2 pool against a plain stable sort of the
+   stage-1 scores, and ``crop_and_resize_gather``'s time and peak memory
+   at that pool; ``FaceModel.process`` faces/s under ``typical()``,
+   ``worst_case()`` and ``crowd()`` (7 windows) with K2's launches;
+   ``accurate_landmark`` (every refined landmark inside its patch, K2's
+   chips of them against the plain warp); ``detect_faces_limited`` from
+   stage-1 boxes against ``detect_faces``; ``profile_cascade`` against the
+   stages' valid sums and ``calibrate_budgets`` in smoke mode;
+   ``GenderAgeResNet50`` on 64 aligned chips (ms, decoded ranges);
+   ``Verifier.score_matrix`` over crowd-profile embeddings against K1's
+   plain version (2e-2), K1 counted; then ``drivers.alink_arc``'s path at
+   full width (ArcFace r100 (3, 13, 30, 3) 112^2 bf16, 512-d,
+   ``SiameseHead`` (512, 64), the six-channel bank with perlin and the
+   one-pixel DE; people, slabs and maxiter cut, each cut printed) with s
+   per iteration and its split, DE on 8 pairs and FGSM on 32 through
+   ArcFace.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -106,6 +127,7 @@ from the shapes, the card's peaks and memory rate); the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -948,6 +970,64 @@ def _k3_tap():
     return chain, recs
 
 
+def rand_pairs(rng, n: int, size: int, dev) -> tuple:
+    """``n`` pairs of integer-valued (size, size, 3) f32 images."""
+    x = rng.integers(0, 256, (2, n, size, size, 3))
+    return (torch.as_tensor(x[0], dtype=torch.float32, device=dev),
+            torch.as_tensor(x[1], dtype=torch.float32, device=dev))
+
+
+def one_pixel_targets(predict, head, left, right) -> tuple:
+    """(target, one-hot labels): the class the student does not predict for
+    every other pair, the one it predicts for the rest."""
+    with torch.no_grad():
+        p0 = predict(head, left, right)
+    n = left.shape[0]
+    target = torch.argmax(p0, -1) ^ (torch.arange(n, device=left.device) % 2)
+    return target, torch.nn.functional.one_hot(target, 2).float()
+
+
+def timed_one_pixel(predict, head, left, right, labels, maxiter: int):
+    """The one-pixel attack on pairs, synchronised and timed: (attacked
+    left, right, the DE result read through a wrapper of the solver, s)."""
+    from alink_tpu_torch.ops import attack
+
+    seen = {}
+    solver = attack.differential_evolution
+
+    def recorded(*a, **k):
+        seen["result"] = solver(*a, **k)
+        return seen["result"]
+
+    attack.differential_evolution = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            al, ar = attack.one_pixel_attack_pairs(
+                predict, head, left, right, labels,
+                torch.Generator(left.device).manual_seed(SEED),
+                maxiter=maxiter)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    finally:
+        attack.differential_evolution = solver
+    return al, ar, seen["result"], t
+
+
+def timed_fgsm(predict, head, left, right, labels) -> tuple:
+    """FGSM on pairs, a warm call then a synchronised timed one: (left,
+    right, ms)."""
+    from alink_tpu_torch.ops import attack
+
+    attack.fgsm_pairs(predict, head, left, right, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fl, fr = attack.fgsm_pairs(predict, head, left, right, labels)
+    torch.cuda.synchronize()
+    return fl, fr, (time.perf_counter() - t0) * 1e3
+
+
 def phase_a2(dev, smi: str) -> int:
     """(g): one-pixel DE, FGSM and one loop iteration with the default bank
     at full width; returns K3's launches in them."""
@@ -958,7 +1038,7 @@ def phase_a2(dev, smi: str) -> int:
     from alink_tpu_torch.drivers import common
     from alink_tpu_torch.drivers.alink import make_adversarial_predict
     from alink_tpu_torch.models import SiameseHead, preprocess
-    from alink_tpu_torch.ops import attack, resblock
+    from alink_tpu_torch.ops import resblock
     from alink_tpu_torch.train import TrainState
 
     for line in (f"one-pixel DE on {G_DE_PAIRS} pairs, maxiter 50 -> "
@@ -973,41 +1053,15 @@ def phase_a2(dev, smi: str) -> int:
     head = SiameseHead(2048, (512, 64), generator=g, device=dev)
     predict = make_adversarial_predict(featurize)
     rng = np.random.default_rng(SEED + 7)
-
-    def pairs(n):
-        x = rng.integers(0, 256, (2, n, F_IMAGE, F_IMAGE, 3))
-        return (torch.as_tensor(x[0], dtype=torch.float32, device=dev),
-                torch.as_tensor(x[1], dtype=torch.float32, device=dev))
-
     k3 = resblock.bottleneck_s1_kernel
     total = 0
 
-    # One-pixel DE.  The solver's result is read through a wrapper.
-    left, right = pairs(G_DE_PAIRS)
-    with torch.no_grad():
-        p0 = predict(head, left, right)
-    # Target the class the student does not predict for half of the pairs.
-    target = torch.argmax(p0, -1) ^ (torch.arange(G_DE_PAIRS, device=dev) % 2)
-    labels = torch.nn.functional.one_hot(target, 2).float()
-    seen = {}
-    solver = attack.differential_evolution
-
-    def recorded(*a, **k):
-        seen["result"] = solver(*a, **k)
-        return seen["result"]
-
-    attack.differential_evolution = recorded
+    # One-pixel DE.
+    left, right = rand_pairs(rng, G_DE_PAIRS, F_IMAGE, dev)
+    target, labels = one_pixel_targets(predict, head, left, right)
     k3.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        al, ar = attack.one_pixel_attack_pairs(
-            predict, head, left, right, labels,
-            torch.Generator(dev).manual_seed(SEED), maxiter=G_DE_MAXITER)
-    torch.cuda.synchronize()
-    t_de = time.perf_counter() - t0
-    attack.differential_evolution = solver
-    res = seen["result"]
+    al, ar, res, t_de = timed_one_pixel(predict, head, left, right, labels,
+                                        G_DE_MAXITER)
     de_launches = k3.launches
     total += de_launches
     gens = int(res.nit.max())
@@ -1046,16 +1100,11 @@ def phase_a2(dev, smi: str) -> int:
           f"changed {changed.tolist()}, K3 launches {de_launches}", flush=True)
 
     # FGSM, then K3's backward block by block against its plain arithmetic.
-    left, right = pairs(G_FGSM_PAIRS)
+    left, right = rand_pairs(rng, G_FGSM_PAIRS, F_IMAGE, dev)
     labels = torch.nn.functional.one_hot(torch.as_tensor(
         rng.integers(0, 2, G_FGSM_PAIRS), device=dev), 2).float()
     k3.launches = 0
-    attack.fgsm_pairs(predict, head, left, right, labels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fl, fr = attack.fgsm_pairs(predict, head, left, right, labels)
-    torch.cuda.synchronize()
-    ms_fgsm = (time.perf_counter() - t0) * 1e3
+    fl, fr, ms_fgsm = timed_fgsm(predict, head, left, right, labels)
     total += k3.launches
     step = torch.cat([(fl - left).abs(), (fr - right).abs()])
     check(bool(torch.isfinite(step).all()) and float(step.max()) == 2.0,
@@ -1831,6 +1880,356 @@ def phase_speed(fm, x, smi: str) -> None:
           f"{IMG}x{IMG} input on {smi}", flush=True)
 
 
+# Phase (k): the rest of detect and serving, and the ArcFace A-LINK driver.
+# Photos and batch as (c)/(d), open thresholds.  The crowd profile's
+# within-budget totals cover every candidate (n x stage1_budget,
+# n x stage2_budget); its defaults (4,096 and 4,096) are over budget here.
+K_OPEN = (0.0, 0.0, 0.0)
+K_PROFILES = ("typical", "worst_case", "crowd")
+K_EXACT_PX = 1e-3        # crowd within budget vs worst_case: boxes, landmarks
+K_WINDOW_ITERS = 3       # process calls per timing window, 7 windows
+# The ArcFace training slice: (f)'s epochs, steps, queue and chunk; cuts,
+# each printed:
+K_PEOPLE = 4             # synthetic DFW people (DFW trains on ~1,000)
+K_ALINK_BS = 2           # people per slab, default 16: 2 slabs of 40 pairs
+# Selection opened so that every slab queries pairs and M2 is finetuned
+# through ArcFace features: every pair selected, no grey band (the
+# committee of this short pretraining sits inside the default band).
+K_DISPARITY = 1.0        # default 0.25
+K_EPS = 0.0              # default 0.05
+K_LOOP_MAXITER = 2       # the loop's one-pixel generations, default 50
+K_DE_PAIRS = 8           # the one-pixel attack alone, maxiter cut as (g)
+K_FGSM_PAIRS = 32
+K_ARC = 112
+
+
+def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
+    """(k), serving side: the crowd profile, faces/s under each profile,
+    L-Net, ``detect_faces_limited``, ``profile_cascade`` and
+    ``calibrate_budgets``, genderage and the score matrix over crowd
+    embeddings; returns K1's and K2's launches."""
+    from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
+                                        detect_faces, detect_faces_limited,
+                                        init_cascade_params)
+    from alink_tpu_torch.detect import cascade
+    from alink_tpu_torch.detect.cascade import alignment_transforms
+    from alink_tpu_torch.models import (ArcFaceResNet100, GenderAgeHead,
+                                        GenderAgeResNet50)
+    from alink_tpu_torch.ops import image, pairwise
+    from alink_tpu_torch.serving import Verifier
+    from alink_tpu_torch.tools.profile_serving import summary, windows
+
+    t_phase = time.perf_counter()
+    k1, k2 = pairwise.score_matrix_kernel, image.affine_warp_batch_kernel
+    counts = {"pair_score": 0, "affine_warp": 0}
+    photos = torch.as_tensor(rng.uniform(0, 255, (BATCH, IMG, IMG, 3)),
+                             dtype=torch.float32, device=dev)
+    wc = CascadeConfig.worst_case(thresholds=K_OPEN)
+    crowd = CascadeConfig.crowd(thresholds=K_OPEN)
+
+    # The crowd profile within budget, f32 towers: worst_case's detections.
+    p32 = init_cascade_params(torch.Generator().manual_seed(SEED + 11),
+                              dtype=torch.float32, device=dev)
+    within = CascadeConfig.crowd(thresholds=K_OPEN,
+                                 stage2_total=BATCH * wc.stage1_budget,
+                                 stage3_total=BATCH * wc.stage2_budget)
+    want, got = detect_faces(p32, photos, wc), detect_faces(p32, photos,
+                                                            within)
+    v = want.valid
+    check(torch.equal(got.valid, v) and bool(v.any()),
+          "crowd within budget: valid differs from worst_case")
+    eb, el = maxdiff(got.boxes[v], want.boxes[v]), maxdiff(
+        got.landmarks[v], want.landmarks[v])
+    print(f"crowd: within budget (totals {within.stage2_total}, "
+          f"{within.stage3_total}) vs worst_case, f32 towers: valid equal "
+          f"({int(v.sum())} faces), max|diff| boxes {eb:.3e} landmarks "
+          f"{el:.3e} px (limit {K_EXACT_PX})", flush=True)
+    check(eb <= K_EXACT_PX and el <= K_EXACT_PX, "crowd within budget: "
+          f"boxes {eb} or landmarks {el} past {K_EXACT_PX}")
+    del p32, want, got
+
+    # The default crowd() over budget: the pool is the top stage-2 total of
+    # the stage-1 scores, against a plain stable sort on the host.
+    pb = init_cascade_params(torch.Generator().manual_seed(SEED + 12),
+                             device=dev)
+    with torch.no_grad():
+        b1, s1, v1 = cascade._stage1(pb, photos, crowd)
+    n_cand = int(v1.sum())
+    total = crowd.stage2_total
+    check(n_cand > total, f"crowd: {n_cand} candidates fit the pool")
+    idx, iid, tv = cascade._pool_by_score(
+        s1.reshape(-1), v1.reshape(-1), BATCH, crowd.stage1_budget, total)
+    flat = torch.where(v1, s1, float("-inf")).reshape(-1).cpu()
+    order = torch.sort(flat, descending=True, stable=True).indices[:total]
+    check(torch.equal(torch.sort(idx[tv].cpu()).values,
+                      torch.sort(order).values),
+          "crowd: the pooled candidates are not the top stage-1 scores")
+    check(bool((iid[:-1] <= iid[1:]).all()), "crowd: pool not by image")
+    fold = dict(offset=127.5, scale=0.0078125)
+    bx = b1.reshape(-1, 4)[idx]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    image.crop_and_resize_gather(photos, bx, iid, (24, 24), **fold)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    ms = cuda_ms(lambda: image.crop_and_resize_gather(
+        photos, bx, iid, (24, 24), **fold), iters=10)
+    whole = total * IMG * IMG * 3 * 4 / 2 ** 20
+    print(f"crowd: default crowd() {n_cand} stage-1 candidates, pool "
+          f"{total}: exactly the top {total} scores (plain stable sort); "
+          f"crop_and_resize_gather {total} x 24^2 from {IMG}^2: {ms:.3f} ms, "
+          f"peak {peak:.1f} MiB above the inputs (a whole gather: "
+          f"{whole:.0f} MiB) on {smi}", flush=True)
+    det = detect_faces(pb, photos, crowd)
+    check(det.boxes.shape == (BATCH, crowd.stage3_budget, 4)
+          and bool(det.valid.any(dim=1).all())
+          and bool(torch.isfinite(det.landmarks).all()),
+          "crowd: bad detections")
+    del b1, s1, v1, idx, iid, tv, bx
+
+    # faces/s under each profile, each profile's K2 launches.
+    emb = ArcFaceResNet100(generator=g, device=dev)
+    for name in K_PROFILES:
+        fm = FaceModel(emb, pb, getattr(CascadeConfig, name)(
+            thresholds=K_OPEN))
+        k2.launches = 0
+        s = summary(windows(lambda: fm.process(photos), dev, n_windows=7,
+                            iters=K_WINDOW_ITERS))
+        torch.cuda.synchronize()
+        counts["affine_warp"] += k2.launches
+        print(f"process {name}: {BATCH * 1e3 / s['median_ms']:.1f} faces/s "
+              f"at batch {BATCH} (median of 7 windows of {K_WINDOW_ITERS} "
+              f"{s['median_ms']:.2f} ms/batch, min {s['min_ms']:.2f}, max "
+              f"{s['max_ms']:.2f}; main-thread CPU {s['cpu_median_ms']:.2f}), "
+              f"K2 launches {k2.launches}, r100 bf16, {IMG}x{IMG} on {smi}",
+              flush=True)
+        check(k2.launches > 0, f"process {name}: K2 was not launched")
+
+    # L-Net: every refined landmark inside its patch; K2's chips of the
+    # refined landmarks against the plain warp.
+    typ = CascadeConfig.typical(thresholds=K_OPEN)
+    fm_l = FaceModel(emb, pb, dataclasses.replace(typ,
+                                                  accurate_landmark=True))
+    d0, d1 = detect_faces(pb, photos, typ), fm_l.detect(photos)
+    check(torch.equal(d0.valid, d1.valid) and torch.equal(d0.boxes,
+                                                          d1.boxes),
+          "accurate_landmark changed the detections")
+    bw = torch.maximum(d0.boxes[..., 2] - d0.boxes[..., 0] + 1,
+                       d0.boxes[..., 3] - d0.boxes[..., 1] + 1)
+    pw = torch.round(bw * 0.25)
+    pw = torch.where(pw % 2 == 1, pw + 1, pw)[..., None, None]
+    x0 = torch.round(d0.landmarks - 0.5 * pw)
+    # L-Net's offsets lie in [0.15, 0.85] of the patch (or at 0.5), and
+    # x0 and the width are integers, so the truncation stays in the patch.
+    inside = (d1.landmarks >= x0) & (d1.landmarks <= x0 + pw)
+    moved = (d1.landmarks - d0.landmarks).abs()[d0.valid]
+    check(bool(inside[d0.valid].all()), "a refined landmark left its patch")
+    best = torch.argmax(torch.where(d1.valid, d1.scores, -1.0), dim=1)
+    lmk = d1.landmarks[torch.arange(BATCH, device=dev), best]
+    Ms = alignment_transforms(lmk)
+    chips = image.affine_warp_batch(photos, Ms, (112, 112))
+    one = image.affine_warp(photos[0], Ms[0], (112, 112))
+    k2.launches = 0
+    fm_l.process(photos)
+    torch.cuda.synchronize()
+    counts["affine_warp"] += k2.launches
+    err = max(maxdiff(chips, image.affine_warp_batch_reference(
+        photos, Ms, (112, 112))), maxdiff(one, chips[0]))
+    print(f"lnet: {int(d0.valid.sum())} faces, every refined landmark in its "
+          f"patch, mean |move| {float(moved.mean()):.2f} px; K2 chips of the "
+          f"refined landmarks vs plain max|diff| {err:.3e}; K2 launches "
+          f"{k2.launches}", flush=True)
+    check(err <= 1e-3, f"lnet chips: max|diff| {err} > 1e-3")
+    check(k2.launches > 0, "accurate_landmark process: K2 was not launched")
+
+    # detect_faces_limited from the full cascade's stage-1 boxes.
+    with torch.no_grad():
+        b1, _, v1 = cascade._stage1(pb, photos, typ)
+    dl = detect_faces_limited(pb, photos, b1, v1, typ)
+    check(torch.equal(dl.valid, d0.valid), "limited: valid differs")
+    el = max(maxdiff(dl.boxes[d0.valid], d0.boxes[d0.valid]),
+             maxdiff(dl.landmarks[d0.valid], d0.landmarks[d0.valid]))
+    print(f"limited: from stage-1 boxes reproduces detect_faces, max|diff| "
+          f"{el:.3e} px", flush=True)
+    check(el <= K_EXACT_PX, f"limited: max|diff| {el}")
+
+    # profile_cascade against the stages' valid sums; calibrate_budgets.
+    prof = cascade.profile_cascade(pb, photos, wc)
+    with torch.no_grad():
+        b, _, v1 = cascade._stage1(pb, photos, wc)
+        b, _, v2 = cascade._stage2(pb, photos, b, v1, wc)
+        v3 = cascade._stage3(pb, photos, b, v2, wc)[2]
+    for key, vv in (("stage1", v1), ("stage2", v2), ("stage3", v3)):
+        check(torch.equal(prof[key], vv.sum(1)), f"profile {key} differs")
+    print("profile_cascade: stage counts equal the stages' valid sums; mean "
+          + ", ".join(f"{k} {float(t.float().mean()):.1f}"
+                      for k, t in prof.items()), flush=True)
+    res = subprocess.run(
+        [sys.executable, "-m", "alink_tpu_torch.tools.calibrate_budgets"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=300)
+    text = res.stdout
+    check(res.returncode == 0 and "Recommended config" in text,
+          f"calibrate_budgets failed: {res.stderr[-2000:]}")
+    print("python -m alink_tpu_torch.tools.calibrate_budgets (smoke mode): "
+          + " ".join(text.split("Recommended config:")[1].split()), flush=True)
+
+    # Genderage on 64 aligned chips.
+    fm_t = FaceModel(emb, pb, typ)
+    aligned = fm_t.get_input(photos)
+    ga = GenderAgeResNet50(generator=g, device=dev).eval()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: ga(aligned), iters=10)
+    gender, age = fm_t.get_ga(aligned, ga)
+    hg, ha = fm_t.get_ga_from_embedding(aligned, GenderAgeHead(
+        generator=g, device=dev))
+    for gg, aa in ((gender, age), (hg, ha)):
+        check(gg.shape == aa.shape == (BATCH,) and bool(
+            ((gg == 0) | (gg == 1)).all()) and bool(
+            ((aa >= 0) & (aa <= 100)).all()), "genderage: bad decode")
+    print(f"genderage: GenderAgeResNet50 {ga.stage_sizes} bf16 on {BATCH} "
+          f"aligned chips {ms:.2f} ms/batch; gender {gender.tolist()[:8]}..., "
+          f"age {age.tolist()[:8]}...; head over embeddings ok on {smi}",
+          flush=True)
+    del ga
+
+    # Verifier.score_matrix over crowd-profile embeddings (K1).
+    fm_c = FaceModel(emb, pb, crowd)
+    k1.launches = 0
+    grid = Verifier(fm_c.process, head).score_matrix(photos)
+    torch.cuda.synchronize()
+    counts["pair_score"] += k1.launches
+    feats = fm_c.process(photos)
+    err = maxdiff(grid, pairwise.score_matrix_reference(head, feats, feats))
+    print(f"crowd: Verifier.score_matrix over crowd embeddings vs plain "
+          f"max|diff| {err:.3e} (limit {K1_FLOAT_LIMIT}); K1 launches "
+          f"{k1.launches}", flush=True)
+    check(k1.launches > 0, "score_matrix did not launch K1")
+    check(err <= K1_FLOAT_LIMIT, f"crowd score_matrix: max|diff| {err}")
+    print(f"serving rest: phase (k) serving side "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def phase_arc(dev, smi: str) -> None:
+    """(k), training side: ``drivers.alink_arc`` at full width (ArcFace
+    r100 112^2 bf16, the default six-channel bank with perlin and the
+    one-pixel DE), then DE and FGSM through ArcFace alone."""
+    import tempfile
+
+    from alink_tpu_torch.config import ALinkArcConfig
+    from alink_tpu_torch.drivers import alink as driver
+    from alink_tpu_torch.drivers.alink import (make_adversarial_predict,
+                                               parse_config, run_alink)
+    from alink_tpu_torch.drivers.alink_arc import make_arcface_featurizer
+    from alink_tpu_torch.models import SiameseHead
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="arc_", dir=work))
+    cfg = parse_config(
+        [], config_cls=ALinkArcConfig, synthetic_people=K_PEOPLE,
+        dig_epochs=F_DIG_EPOCHS, undig_epochs=F_UNDIG_EPOCHS,
+        train_steps=F_TRAIN_STEPS, alink_bs=K_ALINK_BS,
+        batch_send=F_BATCH_SEND, device_batch=F_DEVICE_BATCH, seed=SEED,
+        disparity_ratio=K_DISPARITY, eps=K_EPS,
+        out_model=str(out / "postALINK_arc"),
+        ensemble_basepath=str(out / "ensemble_arc"),
+        disguised_basemodel=str(out / "disguisedModel_arc"))
+    check(cfg.image_res == (K_ARC, K_ARC) and cfg.feature_res == 512
+          and "perlin" in cfg.noise and cfg.noise[-1] == "adversarial",
+          f"ArcFace config {cfg}")
+    for line in (f"synthetic_people {K_PEOPLE} (DFW: ~1,000 people)",
+                 f"dig_epochs {F_DIG_EPOCHS} (40), undig_epochs "
+                 f"{F_UNDIG_EPOCHS} (60), train_steps {F_TRAIN_STEPS} "
+                 "(320,000)",
+                 f"alink_bs {K_ALINK_BS} (16), batch_send {F_BATCH_SEND} (64),"
+                 f" device_batch {F_DEVICE_BATCH} (1,024)",
+                 f"the loop's one-pixel maxiter 50 -> {K_LOOP_MAXITER}",
+                 f"disparity_ratio {K_DISPARITY} (0.25), eps {K_EPS} "
+                 "(0.05): every slab queries pairs and finetunes M2",
+                 f"DE alone: {K_DE_PAIRS} pairs, maxiter {G_DE_MAXITER}; "
+                 f"FGSM on {K_FGSM_PAIRS} pairs"):
+        print(f"arc cut: {line}", flush=True)
+    t0 = time.perf_counter()
+    featurize, model = make_arcface_featurizer(
+        torch.Generator().manual_seed(cfg.seed + 100), depth=cfg.embed_depth,
+        device=dev)
+    print(f"arc: ArcFace r100 {model.stage_sizes} bf16 built in "
+          f"{time.perf_counter() - t0:.1f} s; bank {cfg.noise}", flush=True)
+
+    base = driver.ALinkLoop
+
+    class Cut(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, adversarial_kwargs={
+                "maxiter": K_LOOP_MAXITER}, **k)
+
+    driver.ALinkLoop = Cut
+    try:
+        t0 = time.perf_counter()
+        state = run_alink(cfg, featurize=featurize, device=dev)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+    finally:
+        driver.ALinkLoop = base
+    logs = state.logs
+    for lg in logs:
+        print(f"arc: {lg}", flush=True)
+    check(len(logs) >= 1 and state.un_size == sum(
+        lg.pairs for lg in logs) > 0, f"arc loop logs {logs}")
+    n_ft = sum(lg.finetuned for lg in logs)
+    tm = state.timings.as_dict()
+    check(state.active_count > 0 and n_ft > 0 and "finetune" in tm,
+          f"arc: no pair was queried or M2 never finetuned ({logs})")
+    n_it = len(logs)
+    print(f"arc: run_alink {t_run:.1f} s; one loop iteration "
+          f"{sum(tm.values()) / n_it:.3f} s (mean of {n_it}, "
+          f"{logs[0].pairs} pairs); per-phase s/iteration "
+          + ", ".join(f"{k} {v / n_it:.3f}" for k, v in
+                      sorted(tm.items(), key=lambda kv: -kv[1]))
+          + f"; finetune s/event {tm['finetune'] / n_ft:.4f} ({n_ft} "
+          f"events, active count {state.active_count} of {state.un_size}) "
+          f"on {smi}", flush=True)
+
+    g = torch.Generator().manual_seed(SEED + 13)
+    head = SiameseHead(512, (512, 64), generator=g, device=dev)
+    predict = make_adversarial_predict(featurize)
+    rng = np.random.default_rng(SEED + 13)
+
+    left, right = rand_pairs(rng, K_DE_PAIRS, K_ARC, dev)
+    _, labels = one_pixel_targets(predict, head, left, right)
+    al, ar, res, t_de = timed_one_pixel(predict, head, left, right, labels,
+                                        G_DE_MAXITER)
+    gens = int(res.nit.max())
+    changed = ((al != left).any(-1).flatten(1).sum(1)
+               + (ar != right).any(-1).flatten(1).sum(1))
+    check(bool((changed <= 40).all()), f"DE wrote {changed.tolist()} pixels")
+    images = 2 * int(res.nfev.sum())
+    print(f"arc: one-pixel DE on ArcFace r100, {K_DE_PAIRS} pairs: "
+          f"{t_de:.3f} s, {gens} generation(s) (nit {res.nit.tolist()}), "
+          f"{t_de / max(gens, 1):.3f} s/generation incl. init, nfev "
+          f"{res.nfev.tolist()} ({images} images of 112^2, "
+          f"{images / t_de:.0f} images/s), stopped early "
+          f"{res.stopped_early.tolist()}, pixels changed {changed.tolist()} "
+          f"on {smi}", flush=True)
+
+    left, right = rand_pairs(rng, K_FGSM_PAIRS, K_ARC, dev)
+    labels = torch.nn.functional.one_hot(torch.as_tensor(
+        rng.integers(0, 2, K_FGSM_PAIRS), device=dev), 2).float()
+    fl, fr, ms_fgsm = timed_fgsm(predict, head, left, right, labels)
+    step = torch.cat([(fl - left).abs(), (fr - right).abs()])
+    check(bool(torch.isfinite(step).all()) and float(step.max()) == 2.0,
+          "ArcFace FGSM step is not 2 pixels")
+    print(f"arc: FGSM on ArcFace r100, {K_FGSM_PAIRS} pairs (forward + "
+          f"backward through cuDNN bf16): {ms_fgsm:.2f} ms, "
+          f"{100 * float((step == 2).float().mean()):.1f} % of pixels moved; "
+          f"phase (k) training side {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1874,15 +2273,22 @@ def main() -> int:
     eval_counts = phase_eval(dev, smi)
     torch.cuda.empty_cache()
     resume_counts = phase_resume(dev, smi, alink_cfg, f_finetune_s)
+    torch.cuda.empty_cache()
+    rest_counts = phase_serving_rest(dev, g, rng, head, smi)
+    torch.cuda.empty_cache()
+    phase_arc(dev, smi)
     # Each kernel's count is the one from the main paths that run it:
-    # serving and evaluation for K1, serving and the augmented loop for K2,
+    # serving, evaluation and (k)'s score matrix for K1, serving, the
+    # augmented loop and (k)'s profiles and L-Net chips for K2,
     # training, the A2 channel, evaluation and the augmented loop for K3,
     # its own op path for K4.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
                             + eval_counts["bottleneck"]
                             + resume_counts["bottleneck"])
-    counts["pair_score"] += eval_counts["pair_score"]
-    counts["affine_warp"] += resume_counts["affine_warp"]
+    counts["pair_score"] += (eval_counts["pair_score"]
+                             + rest_counts["pair_score"])
+    counts["affine_warp"] += (resume_counts["affine_warp"]
+                              + rest_counts["affine_warp"])
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),

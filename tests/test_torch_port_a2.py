@@ -29,6 +29,7 @@ DE through its ``draw`` function.  Tolerances, each with its reason:
 """
 
 import functools
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -619,12 +620,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(n)\n"
         "bad = sorted(k for k in set(sys.modules) - before if k.split('.')[0]"
         " in ('jax', 'jaxlib', 'flax', 'alink_tpu'))\n"
-        "print(len(names), bad)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+        "print(json.dumps([names, bad]))\n")
+    res = subprocess.run([sys.executable, "-c", "import json\n" + code],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) > 30 and bad == "[]", res.stdout
+    names, bad = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(names) > 30 and bad == [], res.stdout
+    assert {f"alink_tpu_torch.{m}" for m in (
+        "models.genderage", "models.mtcnn", "detect.cascade",
+        "detect.face_model", "drivers.alink_arc",
+        "tools.calibrate_budgets")} <= set(names)
 
 
 def test_profile_alink_a2_breakdown_runs_on_cpu():

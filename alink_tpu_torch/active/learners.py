@@ -33,16 +33,21 @@ class ActiveLearner:
         query_strategy: ``(probs, n_instances) -> indices`` (the sampling
             functions of ``active.uncertainty``).
         generator: the shuffles of every (re)fit.
+        dropout_generator: the dropout masks of every (re)fit, on the
+            state's device (needed by a student with dropout, SmallRes).
         fit_kwargs: forwarded to ``train.fit`` on every (re)fit.
     """
 
     def __init__(self, state: T.TrainState,
                  query_strategy: Callable = uncertainty_sampling, *,
-                 generator: torch.Generator | None = None, **fit_kwargs):
+                 generator: torch.Generator | None = None,
+                 dropout_generator: torch.Generator | None = None,
+                 **fit_kwargs):
         self.state = state
         self.query_strategy = query_strategy
         self.generator = generator if generator is not None else \
             torch.Generator().manual_seed(0)
+        self.dropout_generator = dropout_generator
         self.fit_kwargs = dict(fit_kwargs)
         self._left = None
         self._right = None
@@ -74,7 +79,8 @@ class ActiveLearner:
             self.state, torch.as_tensor(to_numpy(left), device=dev),
             torch.as_tensor(to_numpy(right), device=dev),
             torch.as_tensor(to_numpy(y), device=dev),
-            generator=self.generator, **kwargs)
+            generator=self.generator,
+            dropout_generator=self.dropout_generator, **kwargs)
         return logs
 
     def teach(self, left, right, y, only_new: bool = False, **overrides):

@@ -1,20 +1,23 @@
 """The A-LINK loop (counterpart of ``alink_tpu/active/loop.py``; the
 reference's ALINK.py:145-259).  Per slab of ``alink_bs`` unlabeled persons:
 
-1. build the all-pairs slab (plain x disguised + disguised x disguised);
+1. build the all-pairs slab with ``pair_builder`` (DFW: plain x disguised +
+   disguised x disguised; Multi-PIE: one group, ``mtp_all_pairs_index``);
    its ground-truth labels act as the pseudo-oracle;
 2. in chunks of at most ``device_batch`` pairs: gather the pairs from the
    device-resident pool, featurize, committee (M1) probabilities and
-   one-hot labels, the noise bank on the raw pixels (its model channels
-   attack the live student toward M1's labels; grad is enabled only
-   inside FGSM), student (M2) probabilities per channel;
+   one-hot labels, the noise bank on the raw pixels resized to
+   ``student_res`` (its model channels attack the live student toward M1's
+   labels; grad is enabled only inside FGSM), student (M2) probabilities
+   per channel;
 3. disparity selection, all-noise intersection and the oracle gate
    (``active.selection``, with the host-exact take count ``int(n * ratio)``);
 4. queue equal per-noise shares of the queried pairs;
 5. once the queue holds ``batch_send`` pairs: add the clean queried pairs
    (with ``augment``, their rotated, sheared and shifted copies: kernel K2,
    ``ops.augment``) and ``mixture_ratio`` replay batches, finetune M2 with
-   ``fit`` (batch 16), flush;
+   ``fit`` (batch 16; a student with dropout draws its masks from the
+   loop's device generator), flush;
 6. stop once ACTIVE_COUNT >= active_ratio * UN_SIZE (tested before each
    slab).
 
@@ -27,11 +30,16 @@ deterministic from run to run: the hand-written kernels are,
 ``cudnn.benchmark`` stays off, and the noise bank's one scatter-add
 (``poisson``'s level counts) sums integers, exact in any order.
 
+The student's inputs: with ``student_featurize="same"`` (the DFW drivers)
+M2 is a ``SiameseHead`` over the teacher's features; with a callable or
+None and ``student_is_head=False`` (the Multi-PIE driver) M2 is an image
+model, SmallRes, over ``student_featurize``'d (None: raw) pixels at
+``student_res``, scored with its logits and a softmax, and the queue holds
+those image-shaped inputs.
+
 PyTorch runs eagerly, so the JAX package's shape bucketing (pool rows,
 chunk widths, gathers), which exists to bound recompiles, is not ported:
-chunks take their real width.  The raw-pixel student of the Multi-PIE
-driver (``student_featurize=None``, with ``pair_builder`` and
-``student_res``) waits with that driver (ROADMAP.md, queue item 5).
+chunks take their real width.
 """
 
 from __future__ import annotations
@@ -110,12 +118,25 @@ class ALinkLoop:
 
     Args:
         config: an ``alink_tpu_torch.config.ALinkConfig``.
-        featurize: ``(N, H, W, C) f32 tensor -> (N, D)`` on ``device``;
-            M1 and the M2 student share it (the DFW drivers).
+        featurize: ``(N, H, W, C) f32 tensor -> (N, D)`` on ``device``, M1's
+            featurizer.
         committee: the M1 ensemble over feature pairs.
-        m2_state: the student's ``TrainState`` (a ``SiameseHead``).
-        replay_gen: iterator of clean ``((left, right), y)`` feature batches
-            mixed into each finetune.
+        m2_state: the student's ``TrainState`` (a ``SiameseHead``, or with
+            ``student_is_head=False`` an image model such as SmallRes).
+        student_featurize: the student's input map on the noisy, clean or
+            augmented images at ``student_res``: ``"same"`` (default) is
+            ``featurize`` (M1 and M2 share the backbone, ALINK.py:167), a
+            callable maps them (Multi-PIE: ``preprocess.smallres``), None
+            feeds the raw pixels.
+        student_is_head: M2 scores features with the siamese head's
+            ``pair_scores`` (True) or images with its own logits and a
+            softmax (False).
+        student_res: ``(h, w)`` the noisy pairs are resized to for the
+            student; default ``config.image_res`` (cv2's (w, h)) flipped.
+        pair_builder: ``(plain part, dig part) -> (pool, left_idx,
+            right_idx, labels)`` of a slab (default ``all_pairs_index``).
+        replay_gen: iterator of clean ``((left, right), y)`` batches in the
+            student's input space, mixed into each finetune.
         device_batch: pairs per chunk (default ``config.device_batch``;
             ``"auto"`` is ``AUTO_DEVICE_BATCH``).
         pool_uint8: keep the slab's image pool uint8 on the device.
@@ -136,7 +157,12 @@ class ALinkLoop:
     """
 
     def __init__(self, config, *, featurize: Callable, committee: Committee,
-                 m2_state: TrainState, replay_gen: Iterator | None = None,
+                 m2_state: TrainState,
+                 student_featurize: Callable | str | None = "same",
+                 student_is_head: bool = True,
+                 student_res: tuple[int, int] | None = None,
+                 pair_builder: Callable = all_pairs_index,
+                 replay_gen: Iterator | None = None,
                  device_batch: int | None = None, pool_uint8: bool = False,
                  generator: torch.Generator | None = None,
                  host_generator: torch.Generator | None = None,
@@ -160,9 +186,14 @@ class ALinkLoop:
         self.committee = committee
         self.adversarial_predict = adversarial_predict
         self.adversarial_kwargs = adversarial_kwargs
+        self.student_featurize = (featurize if student_featurize == "same"
+                                  else student_featurize)
+        self.student_is_head = student_is_head
         # The noisy pairs are resized to the student's (h, w); the config
         # holds cv2's (w, h).
-        self.student_res = (config.image_res[1], config.image_res[0])
+        self.student_res = (tuple(student_res) if student_res is not None
+                            else (config.image_res[1], config.image_res[0]))
+        self.pair_builder = pair_builder
         self.replay_gen = replay_gen
         self.pool_uint8 = pool_uint8
         self.device = torch.device(device) if device is not None \
@@ -189,11 +220,28 @@ class ALinkLoop:
 
     # -- helpers ---------------------------------------------------------
 
-    def _features(self, images: torch.Tensor) -> torch.Tensor:
-        """Featurize in pieces of at most ``device_batch`` images."""
+    def _features(self, images: torch.Tensor,
+                  featurize: Callable | None = None) -> torch.Tensor:
+        """``featurize`` (default M1's) in pieces of at most
+        ``device_batch`` images."""
+        fn = featurize if featurize is not None else self.featurize
         db = self.device_batch
-        return torch.cat([self.featurize(images[i:i + db])
+        return torch.cat([fn(images[i:i + db])
                           for i in range(0, images.shape[0], db)])
+
+    def _student_inputs(self, images: torch.Tensor) -> torch.Tensor:
+        """Images at ``student_res`` -> the student's input space."""
+        if self.student_featurize is None:
+            return images
+        return self._features(images, self.student_featurize)
+
+    def _student_probs(self, left: torch.Tensor,
+                       right: torch.Tensor) -> torch.Tensor:
+        """M2's P(genuine) per pair (disguisedFacesModel.predict[:, 1])."""
+        m2 = self.state.m2_state
+        if self.student_is_head:
+            return pair_scores(m2.module, left, right)
+        return torch.softmax(m2.logits(left, right), dim=-1)[:, 1]
 
     def _chunk(self, pool, left_idx, right_idx):
         """One chunk: pool gather, M1 features and probabilities, noise
@@ -212,11 +260,12 @@ class ALinkLoop:
             adversarial_params=self.state.m2_state.module,
             adversarial_kwargs=self.adversarial_kwargs)
         k, nc = noisy_l.shape[:2]
-        sli = self._features(noisy_l.reshape((-1,) + noisy_l.shape[2:]))
-        sri = self._features(noisy_r.reshape((-1,) + noisy_r.shape[2:]))
-        probs = pair_scores(self.state.m2_state.module, sli, sri)
-        return (m1[:, 1], probs.reshape(k, nc), sli.reshape(k, nc, -1),
-                sri.reshape(k, nc, -1))
+        sli = self._student_inputs(noisy_l.reshape((-1,) + noisy_l.shape[2:]))
+        sri = self._student_inputs(noisy_r.reshape((-1,) + noisy_r.shape[2:]))
+        probs = self._student_probs(sli, sri)
+        return (m1[:, 1], probs.reshape(k, nc),
+                sli.reshape((k, nc) + sli.shape[1:]),
+                sri.reshape((k, nc) + sri.shape[1:]))
 
     # -- one slab --------------------------------------------------------
 
@@ -225,8 +274,8 @@ class ALinkLoop:
         cfg = self.config
         dev = self.device
         with self.timings.phase("pairs"):
-            flat, left_idx, right_idx, y = all_pairs_index(plain_part,
-                                                           dig_part)
+            flat, left_idx, right_idx, y = self.pair_builder(plain_part,
+                                                             dig_part)
             pool_np = np.asarray(flat)
             if self.pool_uint8:
                 pool_np = np.clip(pool_np, 0, 255).astype(np.uint8)
@@ -314,9 +363,9 @@ class ALinkLoop:
                 torch.as_tensor(labels, device=left_raw.device))
             labels = y.cpu().numpy()
         with torch.no_grad():
-            parts_l.append(self._features(
+            parts_l.append(self._student_inputs(
                 resize(left_raw, self.student_res)).cpu().numpy())
-            parts_r.append(self._features(
+            parts_r.append(self._student_inputs(
                 resize(right_raw, self.student_res)).cpu().numpy())
         parts_y.append(labels)
         if self.replay_gen is not None:
@@ -331,7 +380,8 @@ class ALinkLoop:
             self.state.m2_state, np.concatenate(parts_l),
             np.concatenate(parts_r),
             np.concatenate(parts_y).astype(np.int64), epochs=cfg.ft_epochs,
-            batch_size=16, generator=self.host_generator)
+            batch_size=16, generator=self.host_generator,
+            dropout_generator=self.generator)
         if self._nan_guard:
             # A diverged finetune silently poisons every later round: fail
             # at the step that produced it.

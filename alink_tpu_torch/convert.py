@@ -12,9 +12,10 @@ mapping is by name:
     _PReLU_i -> prelu.i   (alpha)
     _IRUnit_i -> units.i, _Bottleneck_i -> blocks.i
     fc1_gamma, fc1_beta   (unchanged)
+    tower, verify_head    (SmallRes's submodules, unchanged)
 
-ArcFace flattens NHWC before fc1 in both packages, so fc1 needs no
-permutation beyond the transpose.
+ArcFace and the SmallRes tower flatten NHWC before their dense layer in
+both packages, so that layer needs no permutation beyond the transpose.
 
 ``loop_state_from_jax`` carries a JAX ``ALinkLoop``'s state (student,
 Adadelta state, counters, queue) into a port loop.
@@ -38,7 +39,7 @@ def _module_name(key: str) -> str:
     m = re.fullmatch(r"(.+)_(\d+)", key)
     if m and m.group(1) in _MODULE_NAMES:
         return f"{_MODULE_NAMES[m.group(1)]}.{m.group(2)}"
-    if key == "out":
+    if key in ("out", "tower", "verify_head"):
         return key
     raise KeyError(f"no port counterpart for parameter group {key!r}")
 
@@ -71,7 +72,7 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
 def load_flax(module: nn.Module, params: Mapping) -> nn.Module:
     """Load JAX-package parameters into ``module`` (ArcFace, P/R/O-Net,
-    VGGFaceResNet50 or SiameseHead); every tensor must match by name and shape
+    VGGFaceResNet50, SiameseHead or SmallRes); every tensor must match by name and shape
     (``load_state_dict(strict=True)`` raises otherwise)."""
     module.load_state_dict(state_dict_from_flax(params), strict=True)
     return module

@@ -1,10 +1,11 @@
-"""Host-side DFW manifest (counterpart of ``alink_tpu/data/manifest.py``).
+"""Host-side manifests (counterpart of ``alink_tpu/data/manifest.py``).
 
-Plain Python, no pixel IO: one directory per person; a file whose stem
-contains ``_h_`` is a disguised face, ``_I_`` an impostor, anything else
-plain.  A person takes part only if all three groups are non-empty.
+Plain Python, no pixel IO.  DFW: one directory per person; a file whose
+stem contains ``_h_`` is a disguised face, ``_I_`` an impostor, anything
+else plain.  A person takes part only if all three groups are non-empty.
 Filenames carrying UTF-8 BOM debris are resolved by probing variants.
-The Multi-PIE scanner is not ported yet.
+Multi-PIE: one flat directory, the four frontal captures of each subject
+grouped by the integer id that starts the file name (``scan_mtp``).
 """
 
 from __future__ import annotations
@@ -106,3 +107,30 @@ def scan_dfw(
             )
         )
     return people
+
+
+# The four qualifying Multi-PIE frontal captures (readMTP.py:9-14).
+_MTP_SUFFIXES = (
+    "01_01_051_06.png",
+    "02_01_051_06.png",
+    "01_01_051_08.png",
+    "02_01_051_08.png",
+)
+
+
+def mtp_qualifies(path: str) -> bool:
+    """Session/camera filter (readMTP.qualifies, readMTP.py:8-18)."""
+    return any(path.endswith(s) for s in _MTP_SUFFIXES)
+
+
+def scan_mtp(dir_path: str) -> dict[int, list[str]]:
+    """Group qualifying Multi-PIE files by integer subject id
+    (readMTP.readAllImages, readMTP.py:21-39)."""
+    person_wise: dict[int, list[str]] = {}
+    for path in sorted(os.listdir(dir_path)):
+        if not mtp_qualifies(path):
+            continue
+        person_id = int(path.split("_")[0])
+        person_wise.setdefault(person_id, []).append(
+            os.path.join(dir_path, path))
+    return person_wise

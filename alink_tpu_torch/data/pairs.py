@@ -7,10 +7,10 @@ package's order, so the same seed gives the same pair batches.
 
 - ``balanced_pair_batches`` — infinite 1:1 genuine/imposter batch stream;
 - ``all_pairs_index``       — plain x disguised + disguised x disguised grid
-  over one flat image pool;
+  over one flat image pool (``all_pairs_minibatch`` materialised);
+- ``mtp_all_pairs_index``   — the Multi-PIE one-group grid over one flat
+  pool (``mtp_all_pairs_minibatch`` materialised);
 - ``split_disguise_data``   — per-person prefix/suffix split.
-
-The Multi-PIE pair builders are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +43,31 @@ def _grid_indices(counts_a: np.ndarray, counts_b: np.ndarray) -> PairIndex:
         return z, z, z, z, z
     cat = lambda parts: np.concatenate(parts).astype(np.int32)  # noqa: E731
     return cat(pl), cat(xl), cat(pr), cat(yr), cat(lab)
+
+
+def gather_pairs(stacks_a: PersonStacks, stacks_b: PersonStacks,
+                 idx: PairIndex) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Materialise (left, right, labels) from index arrays."""
+    pl, xl, pr, yr, lab = idx
+    return stacks_a.images[pl, xl], stacks_b.images[pr, yr], lab
+
+
+def all_pairs_minibatch(plain: PersonStacks, dig: PersonStacks
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``createMiniBatch`` parity (readDFW.py:222-244): the plain x dig grid
+    followed by the dig x dig grid, in reference enumeration order."""
+    l1, r1, y1 = gather_pairs(plain, dig,
+                              _grid_indices(plain.counts, dig.counts))
+    l2, r2, y2 = gather_pairs(dig, dig, _grid_indices(dig.counts, dig.counts))
+    return (np.concatenate([l1, l2]), np.concatenate([r1, r2]),
+            np.concatenate([y1, y2]))
+
+
+def mtp_all_pairs_minibatch(stacks: PersonStacks
+                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``readMTP.createMiniBatch`` (readMTP.py:123-135): one-group grid."""
+    return gather_pairs(stacks, stacks,
+                        _grid_indices(stacks.counts, stacks.counts))
 
 
 def _sample_within(rng, counts, n):
@@ -161,6 +186,19 @@ def all_pairs_index(
                          off + g2[2] * sb + g2[3]])
     y = np.concatenate([g1[4], g2[4]])
     return flat, li.astype(np.int32), ri.astype(np.int32), y
+
+
+def mtp_all_pairs_index(stacks: PersonStacks
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """``readMTP.createMiniBatch`` as index computation (one group):
+    ``(flat_images, left_idx, right_idx, labels)``."""
+    s = stacks.max_stack
+    flat = stacks.images.reshape((-1,) + stacks.images.shape[2:])
+    g = _grid_indices(stacks.counts, stacks.counts)
+    li = (g[0] * s + g[1]).astype(np.int32)
+    ri = (g[2] * s + g[3]).astype(np.int32)
+    return flat, li, ri, g[4]
 
 
 def split_disguise_data(

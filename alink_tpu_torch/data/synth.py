@@ -3,10 +3,10 @@
 
 Every image of person ``p`` is a noisy copy of a per-person base pattern,
 so identities are separable.  The numpy draws are made in the JAX
-package's order: the same seed writes the same files.  The DFW training
-tree (``make_synthetic_dfw``) and testing protocol
-(``make_synthetic_dfw_test``: images, face-name list, positional mask) are
-ported; the Multi-PIE writer waits with its driver.
+package's order: the same seed writes the same files: the DFW training
+tree (``make_synthetic_dfw``), its testing protocol
+(``make_synthetic_dfw_test``: images, face-name list, positional mask) and
+a flat Multi-PIE directory (``make_synthetic_mtp``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import os
 
 import numpy as np
 from PIL import Image
+
+from alink_tpu_torch.data.manifest import _MTP_SUFFIXES
 
 
 def _person_image(rng, base: np.ndarray, noise: float) -> np.ndarray:
@@ -55,6 +57,23 @@ def make_synthetic_dfw(
             Image.fromarray(_person_image(rng, impostor_base, 0.05)).save(
                 os.path.join(pdir, f"img_I_{i}.jpg")
             )
+    return root
+
+
+def make_synthetic_mtp(root: str, *, num_subjects: int = 5,
+                       image_size: int = 48, seed: int = 0) -> str:
+    """Write a flat Multi-PIE-protocol directory (the four qualifying
+    captures per subject, and one non-qualifying file the scanner must
+    ignore); returns ``root``."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for subject in range(1, num_subjects + 1):
+        base = rng.uniform(0, 255, (image_size, image_size, 3))
+        for suffix in _MTP_SUFFIXES:
+            Image.fromarray(_person_image(rng, base, 0.05)).save(
+                os.path.join(root, f"{subject:03d}_{suffix}"))
+        Image.fromarray(_person_image(rng, base, 0.05)).save(
+            os.path.join(root, f"{subject:03d}_01_01_140_07.png"))
     return root
 
 

@@ -1,6 +1,7 @@
 """Shared driver wiring (counterpart of ``alink_tpu/drivers/common.py``):
 data staging, the featurizer, train-or-load of the student and the
-committee, the replay stream (the reference's ALINK.py:65-143)."""
+committee (or a fresh one, ``build_committee``), the replay stream (the
+reference's ALINK.py:65-143)."""
 
 from __future__ import annotations
 
@@ -132,6 +133,18 @@ def replay_generator(seed: int, normal: PersonStacks,
                      imp: PersonStacks | None, batch_size: int):
     """The balanced clean-pair stream (pretraining and finetune replay)."""
     return balanced_pair_batches(seed, normal, imp, batch_size)
+
+
+def build_committee(generator: torch.Generator | None, feature_dim: int,
+                    noise_names: Sequence[str], num_members: int,
+                    device=None) -> tuple[Committee, SiameseHead]:
+    """The M1 ensemble (ALINK.py:94-97) of ``num_members`` freshly
+    initialised heads, as stacked parameters."""
+    heads = [SiameseHead(feature_dim, generator=generator, device=device)
+             for _ in range(num_members)]
+    return Committee.from_param_list(
+        heads[0], [dict(h.named_parameters()) for h in heads],
+        noise_names), heads[0]
 
 
 def train_or_load_committee(generator: torch.Generator | None,

@@ -27,6 +27,14 @@ def mtcnn(x: torch.Tensor) -> torch.Tensor:
     return (x - 127.5) * 0.0078125
 
 
+def smallres(x: torch.Tensor) -> torch.Tensor:
+    """SmallRes input scaling ``(x - 128) / 128`` (code/siamese.py:179-181).
+    Integer inputs promote to f32 first: uint8 arithmetic would wrap."""
+    if not x.is_floating_point():
+        x = x.float()
+    return (x - 128.0) / 128.0
+
+
 def identity(x: torch.Tensor) -> torch.Tensor:
     """Raw passthrough (ArcFace takes raw RGB; its stem BN scales it)."""
     return x

@@ -16,11 +16,18 @@ A ``TrainState`` holds a module and its optimizer and is updated in place
 (the JAX state is immutable and returned anew; the port returns the same
 object so call sites read alike).  Shuffles draw from a CPU
 ``torch.Generator``; they cannot match ``jax.random``'s.
+
+Dropout (the SmallRes student's) is on only in ``train_step``'s forward:
+a module whose ``logits`` takes ``train`` gets ``train=True`` and
+``dropout_generator``, a generator on the module's device; ``eval_step``
+and every predict path run deterministically.  A module without dropout
+(``SiameseHead``) is called exactly as before.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Iterator, NamedTuple
 
 import numpy as np
@@ -67,24 +74,38 @@ class TrainState(_OptimizerState):
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
-    def logits(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    def logits(self, left: torch.Tensor, right: torch.Tensor, *,
+               train: bool = False,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+        """The module's logits; ``train=True`` turns on the dropout of a
+        module that has it, its masks drawn from ``generator``."""
+        if train and _takes_train(self.module):
+            return self.module.logits(left, right, train=True,
+                                      generator=generator)
         return self.module.logits(left, right)
+
+
+def _takes_train(module: nn.Module) -> bool:
+    return "train" in inspect.signature(module.logits).parameters
 
 
 def _as(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def train_step(state: TrainState, left, right, labels, weighted: bool = True
+def train_step(state: TrainState, left, right, labels, weighted: bool = True,
+               dropout_generator: torch.Generator | None = None
                ) -> tuple[TrainState, torch.Tensor, torch.Tensor]:
     """One gradient step; ``labels`` (N,) int.  Returns (state, loss, acc).
     ``weighted`` applies the customTrainModel class weights; ``fit`` (the
-    finetune) passes none."""
+    finetune) passes none.  The forward runs in train mode: a module with
+    dropout draws its masks from ``dropout_generator``."""
     dev = state.device
     labels = _as(labels, dev)
     targets = one_hot(labels)
     sw = class_weights_from_labels(labels) if weighted else None
-    logits = state.logits(_as(left, dev), _as(right, dev))
+    logits = state.logits(_as(left, dev), _as(right, dev), train=True,
+                          generator=dropout_generator)
     loss = binary_crossentropy(logits, targets, sw)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -154,11 +175,13 @@ class _PlateauControl:
 def fit(state: TrainState, left, right, labels, *, epochs: int,
         batch_size: int, generator: torch.Generator | None = None,
         validation_split: float = 0.2, weighted: bool = False,
-        log_fn: Callable[[EpochLog], None] | None = None
+        log_fn: Callable[[EpochLog], None] | None = None,
+        dropout_generator: torch.Generator | None = None
         ) -> tuple[TrainState, list[EpochLog]]:
     """Keras ``model.fit`` for the finetune: the tail ``validation_split``
     is the validation set (Keras slices before shuffling); the train rows
-    reshuffle every epoch, the last batch may be short."""
+    reshuffle every epoch, the last batch may be short.  Shuffles draw
+    from ``generator``, dropout masks from ``dropout_generator``."""
     dev = state.device
     left, right, labels = _as(left, dev), _as(right, dev), _as(labels, dev)
     n = labels.shape[0]
@@ -181,7 +204,8 @@ def fit(state: TrainState, left, right, labels, *, epochs: int,
         for s in range(steps):
             idx = perm[s * batch_size:(s + 1) * batch_size]
             state, loss, acc = train_step(state, tl[idx], tr[idx], ty[idx],
-                                          weighted=weighted)
+                                          weighted=weighted,
+                                          dropout_generator=dropout_generator)
             tloss += loss
             tacc += acc
         tloss, tacc = float(tloss), float(tacc)
@@ -206,11 +230,13 @@ def custom_train(state: TrainState,
                  generator: torch.Generator | None = None,
                  val_ratio: float = 0.2, n_steps: int = 320000,
                  preprocess: Callable | None = None,
-                 log_fn: Callable[[EpochLog], None] | None = None
+                 log_fn: Callable[[EpochLog], None] | None = None,
+                 dropout_generator: torch.Generator | None = None
                  ) -> tuple[TrainState, list[EpochLog]]:
     """``customTrainModel``: ``int(n_steps / batch_size)`` batches per
     epoch; per batch a random ``val_ratio`` split, a class-weighted step on
-    the rest and an unweighted evaluation of the held-out part."""
+    the rest and an unweighted evaluation of the held-out part.  Splits
+    draw from ``generator``, dropout masks from ``dropout_generator``."""
     dev = state.device
     steps_per_epoch = int(n_steps / batch_size)
     logs: list[EpochLog] = []
@@ -224,8 +250,9 @@ def custom_train(state: TrainState,
             perm = torch.randperm(y.shape[0], generator=generator).to(dev)
             split = int(y.shape[0] * val_ratio)
             tr_idx, va_idx = perm[split:], perm[:split]
-            state, loss, acc = train_step(state, xl[tr_idx], xr[tr_idx],
-                                          y[tr_idx], weighted=True)
+            state, loss, acc = train_step(
+                state, xl[tr_idx], xr[tr_idx], y[tr_idx], weighted=True,
+                dropout_generator=dropout_generator)
             sums[0] += loss
             sums[1] += acc
             if split:

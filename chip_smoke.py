@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, the A2 channel, the
 int8 conv, the DFW evaluation chain, the loop's resume, supervision and
-augmentation, the rest of detect and serving and the ArcFace driver once on
-one NVIDIA GPU.
+augmentation, the rest of detect and serving, the ArcFace driver, and the
+Multi-PIE driver with the classical-AL baselines once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -118,6 +118,20 @@ k. the rest of detect and serving, and the ArcFace driver, with (c)'s
    one-pixel DE; people, slabs and maxiter cut, each cut printed) with s
    per iteration and its split, DE on 8 pairs and FGSM on 32 through
    ArcFace.
+
+l. the Multi-PIE cross-resolution path at full width:
+   ``drivers.alink_mtp.run_alink_mtp`` on a synthetic Multi-PIE tree
+   (VGGFace-ResNet50 (3, 4, 6, 3) 224^2 bf16 teacher on K3, ``SmallRes
+   (2048)`` at 48^2 with dropout, ``SiameseHead`` (512, 64) committee,
+   the adversarial-only bank; subjects, epochs, steps, slabs, queue and
+   maxiter cut, each cut printed) with K3 counted, SmallRes pretraining
+   ms/step, the loop iteration and its split; the top-1 tail again with
+   K1 counted and timed, its grid against K1's plain version on the same
+   embeddings (2e-2); SmallRes on the card against its f32 copy on the
+   CPU (relative 2e-2); one dropout step's masks (keep share 0.75 +/-
+   0.02, multipliers 0 and 1/0.75); one-pixel DE images/s at 48^2; then
+   ``existing_al`` (DFW, K3 counted) and ``existing_al_mtp``, 2 rounds
+   each, s/round.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -2230,11 +2244,329 @@ def phase_arc(dev, smi: str) -> None:
           flush=True)
 
 
+# Phase (l): the Multi-PIE cross-resolution path at full width, then the
+# classical-AL drivers.  Cuts, each printed:
+L_SUBJECTS = 8           # synthetic Multi-PIE training subjects (~337)
+L_TEST_SUBJECTS = 128    # test subjects: 128 gallery entries, 384 probes
+L_ALINK_BS = 4           # subjects per slab, default 8: 2 slabs of 64 pairs
+L_EPOCHS = 2             # lowres_epochs 10, highres_epochs 5
+L_TRAIN_STEPS = 512      # samples per pretraining epoch, default 320,000
+L_BATCH_SEND = 4         # default 32
+L_LOOP_MAXITER = 2       # the loop's one-pixel generations, default 50
+# Selection opened so that every slab queries pairs and M2 is finetuned:
+# half of each slab's pairs selected, no grey band.  At most half the pool
+# is then charged, so the oracle budget never stops the loop early.
+L_DISPARITY = 0.5        # default 0.25
+L_EPS = 0.0              # default 0.1
+L_LOW = 48
+L_CPU_IMAGES = 64        # SmallRes on the card vs its f32 copy on the CPU
+L_REL_LIMIT = 2e-2
+L_K1_LIMIT = 2e-2        # the tail's grid vs K1's plain version
+L_KEEP_BAND = 0.02       # dropout keep share within 0.75 +/- this
+L_WARM_STEPS = 20
+L_DE_PAIRS = 8           # the one-pixel attack alone, maxiter as (g)
+L_AL_ROUNDS = 2
+L_AL_PEOPLE = 4          # existing_al's synthetic DFW people
+
+
+def phase_mtp(dev, smi: str) -> dict:
+    """(l): ``drivers.alink_mtp`` at full width (VGGFace-ResNet50 teacher on
+    K3, SmallRes(2048) at 48^2 with dropout, the adversarial-only bank),
+    its top-1 tail on K1 held to the plain version, SmallRes against its
+    f32 CPU copy, a dropout step's masks, DE at 48^2, then
+    ``existing_al`` and ``existing_al_mtp``; returns the kernels' launch
+    counts on these paths."""
+    import tempfile
+
+    from alink_tpu_torch import train as T
+    from alink_tpu_torch.config import ExistingALConfig, MTPConfig
+    from alink_tpu_torch.data import (load_person_stacks, make_synthetic_dfw,
+                                      make_synthetic_mtp, scan_mtp)
+    from alink_tpu_torch.drivers import alink_mtp as tmtp
+    from alink_tpu_torch.drivers import common, existing_al, existing_al_mtp
+    from alink_tpu_torch.drivers.alink import parse_config
+    from alink_tpu_torch.evaluation.identification import gallery_top1
+    from alink_tpu_torch.models import SmallRes, preprocess, siamese
+    from alink_tpu_torch.ops import pairwise, resblock
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="mtp_", dir=work))
+    make_synthetic_mtp(str(out / "train"), num_subjects=L_SUBJECTS,
+                       image_size=F_IMAGE, seed=SEED)
+    make_synthetic_mtp(str(out / "test"), num_subjects=L_TEST_SUBJECTS,
+                       image_size=L_LOW, seed=SEED + 1)
+    cfg = parse_config(
+        [], config_cls=MTPConfig, data_dir_prefix=str(out / "train"),
+        test_dir=str(out / "test"), image_res=(F_IMAGE, F_IMAGE),
+        lowres_epochs=L_EPOCHS,
+        highres_epochs=L_EPOCHS, train_steps=L_TRAIN_STEPS,
+        alink_bs=L_ALINK_BS, batch_send=L_BATCH_SEND,
+        disparity_ratio=L_DISPARITY, eps=L_EPS, seed=SEED,
+        out_model=str(out / "postALINK"),
+        ensemble_basepath=str(out / "ensemble"),
+        lowres_basemodel=str(out / "lowresModel"))
+    check(cfg.noise == ("adversarial",) and cfg.low_res == L_LOW
+          and cfg.image_res == (F_IMAGE, F_IMAGE)
+          and cfg.feature_res == 2048, f"Multi-PIE config {cfg}")
+    for line in (f"subjects {L_SUBJECTS} (Multi-PIE: ~337), test subjects "
+                 f"{L_TEST_SUBJECTS}",
+                 f"lowres_epochs {L_EPOCHS} (10), highres_epochs {L_EPOCHS} "
+                 f"(5), train_steps {L_TRAIN_STEPS} (320,000)",
+                 f"alink_bs {L_ALINK_BS} (8), batch_send {L_BATCH_SEND} (32)",
+                 f"the loop's one-pixel maxiter 50 -> {L_LOOP_MAXITER}",
+                 f"disparity_ratio {L_DISPARITY} (0.25), eps {L_EPS} (0.1): "
+                 "every slab queries pairs and finetunes M2",
+                 f"DE alone: {L_DE_PAIRS} pairs, maxiter {G_DE_MAXITER}; "
+                 f"existing_al / existing_al_mtp: {L_AL_ROUNDS} rounds"):
+        print(f"mtp cut: {line}", flush=True)
+    featurize, _ = common.make_resnet50_featurizer(
+        torch.Generator().manual_seed(SEED), device=dev)
+
+    base, real_train = tmtp.ALinkLoop, T.custom_train
+    pre = {}
+
+    class Cut(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, adversarial_kwargs={
+                "maxiter": L_LOOP_MAXITER}, **k)
+
+    def timed_train(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_train(*a, **k)
+        torch.cuda.synchronize()
+        pre.update(s=time.perf_counter() - t0, steps=k["epochs"] * int(
+            k["n_steps"] / k["batch_size"]),
+            dropout=k.get("dropout_generator") is not None)
+        return res
+
+    k3, k1 = resblock.bottleneck_s1_kernel, pairwise.score_matrix_kernel
+    tmtp.ALinkLoop, T.custom_train = Cut, timed_train
+    try:
+        k3.launches = 0
+        t0 = time.perf_counter()
+        state, top1 = tmtp.run_alink_mtp(cfg, featurize=featurize,
+                                         device=dev)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = {"bottleneck": k3.launches}
+    finally:
+        tmtp.ALinkLoop, T.custom_train = base, real_train
+    print(f"mtp: run_alink_mtp {t_run:.1f} s; K3 launches "
+          f"{counts['bottleneck']}; top-1 {top1}", flush=True)
+    check(counts["bottleneck"] > 0,
+          "kernel bottleneck was not launched by run_alink_mtp")
+    check(pre.get("dropout") and pre["steps"] > 0,
+          f"SmallRes pretraining did not run with dropout ({pre})")
+    print(f"mtp: SmallRes(2048) {L_LOW}^2 pretraining with dropout: "
+          f"{pre['s'] / pre['steps'] * 1e3:.2f} ms/step ({pre['steps']} "
+          f"steps of {cfg.batch_size} pairs, host batches included) on "
+          f"{smi}", flush=True)
+    logs = state.logs
+    for lg in logs:
+        print(f"mtp: {lg}", flush=True)
+    n_ft = sum(lg.finetuned for lg in logs)
+    check(len(logs) == L_SUBJECTS // L_ALINK_BS and all(
+        lg.pairs == (2 * L_ALINK_BS) ** 2 for lg in logs),
+        f"mtp loop logs {logs}")
+    check(state.active_count > 0 and n_ft > 0,
+          f"mtp: no pair was queried or M2 never finetuned ({logs})")
+    tm = state.timings.as_dict()
+    n_it = len(logs)
+    print(f"mtp: one loop iteration {sum(tm.values()) / n_it:.3f} s (mean "
+          f"of {n_it}, {logs[0].pairs} pairs); per-phase s/iteration "
+          + ", ".join(f"{k} {v / n_it:.3f}" for k, v in
+                      sorted(tm.items(), key=lambda kv: -kv[1]))
+          + f"; finetune s/event {tm['finetune'] / n_ft:.4f} ({n_ft} events,"
+          f" active count {state.active_count} of {state.un_size}) on {smi}",
+          flush=True)
+    check(top1 is not None and 0.0 <= top1 <= 1.0, f"top-1 {top1}")
+
+    # The top-1 tail again, with K1 counted and timed, then its grid held to
+    # K1's plain version on the same embeddings.
+    m2 = state.m2_state.module
+    test_lo = load_person_stacks(list(scan_mtp(cfg.test_dir).values()),
+                                 (L_LOW, L_LOW))
+    score = tmtp.smallres_score_fn(state.m2_state)
+    gallery_top1(score, test_lo)
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    again = gallery_top1(score, test_lo)
+    torch.cuda.synchronize()
+    t_tail = (time.perf_counter() - t0) * 1e3
+    counts["pair_score"] = tail_launches = k1.launches
+    check(k1.launches > 0, "kernel pair_score was not launched by the "
+          "top-1 tail")
+    check(again == top1, f"top-1 {again} != the driver's {top1}")
+    live = np.flatnonzero(test_lo.counts > 0)
+    gallery = test_lo.images[live, 0]
+    probes = np.concatenate([test_lo.images[p, 1:test_lo.counts[p]]
+                             for p in live])
+    pe = tmtp.embed(m2, probes, dev)
+    ge = tmtp.embed(m2, gallery, dev)
+    got = pairwise.score_matrix_kernel(m2.verify_head, pe, ge)
+    want = pairwise.score_matrix_reference(m2.verify_head, pe, ge)
+    torch.cuda.synchronize()
+    err = maxdiff(got, want)
+    print(f"mtp: top-1 {top1:.4f} over {len(probes)} probes x "
+          f"{len(gallery)} gallery; the tail {t_tail:.2f} ms (embed both, "
+          f"K1 grid, argmax), K1 launches {tail_launches}; grid vs plain max "
+          f"|diff| {err:.3e} (limit {L_K1_LIMIT}) on {smi}", flush=True)
+    check(err <= L_K1_LIMIT, f"mtp tail grid: K1 vs plain {err}")
+
+    # SmallRes on the card against its f32 copy on the CPU.
+    x = torch.as_tensor(probes[:L_CPU_IMAGES], device=dev)
+    cpu = SmallRes(2048, dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in m2.state_dict().items()})
+    with torch.no_grad():
+        e_dev = m2.embed(preprocess.smallres(x)).cpu()
+        e_cpu = cpu.embed(preprocess.smallres(x.cpu()))
+        l_dev = m2.logits(preprocess.smallres(x),
+                          preprocess.smallres(x.flip(0))).cpu()
+        l_cpu = cpu.logits(preprocess.smallres(x.cpu()),
+                           preprocess.smallres(x.cpu().flip(0)))
+    rel_e = maxdiff(e_dev, e_cpu) / float(e_cpu.abs().max())
+    rel_l = maxdiff(l_dev, l_cpu) / float(l_cpu.abs().max())
+    print(f"mtp: SmallRes bf16 on the card vs f32 on the CPU, "
+          f"{L_CPU_IMAGES} images: relative max|diff| embed {rel_e:.3e}, "
+          f"logits {rel_l:.3e} (limit {L_REL_LIMIT}) on {smi}", flush=True)
+    check(max(rel_e, rel_l) <= L_REL_LIMIT,
+          f"SmallRes card vs CPU: {rel_e}, {rel_l}")
+
+    # One dropout train step: every mask's keep share, and the kept units
+    # scaled by exactly 1/0.75 in the tower's dtype.
+    masks = []
+    draw = m2.tower.draw
+
+    def record(shape, g, device):
+        mk = draw(shape, g, device)
+        masks.append(mk)
+        return mk
+
+    m2.tower.draw = record
+    try:
+        T.train_step(T.TrainState(m2, 0.1), preprocess.smallres(x),
+                     preprocess.smallres(x.flip(0)),
+                     torch.arange(len(x), device=dev) % 2,
+                     dropout_generator=torch.Generator(dev).manual_seed(SEED))
+    finally:
+        m2.tower.draw = draw
+    shares = [float(mk.float().mean()) for mk in masks]
+    ones = torch.ones(4, 32, 23, 23, dtype=m2.tower.dtype, device=dev)
+    scaled = m2.tower._dropout(ones, True,
+                               torch.Generator(dev).manual_seed(SEED))
+    kept = torch.tensor(1.0, dtype=ones.dtype) / siamese.KEEP
+    values = set(torch.unique(scaled).float().tolist())
+    print(f"mtp: dropout step on {len(x)} pairs: {len(masks)} masks "
+          f"{[tuple(mk.shape) for mk in masks]}, keep shares "
+          f"{[round(v, 4) for v in shares]}; multiplier values "
+          f"{sorted(values)}", flush=True)
+    check(len(masks) == 4 and all(mk.dtype == torch.bool for mk in masks)
+          and all(abs(v - siamese.KEEP) <= L_KEEP_BAND for v in shares),
+          f"dropout keep shares {shares}")
+    check(values == {0.0, float(kept)}, f"dropout multipliers {values}")
+    # The same step warm, at the pretraining's batch: device-resident pairs,
+    # no host batch making.
+    state = T.TrainState(m2, 0.1)
+    b = cfg.batch_size
+    xa, xb = preprocess.smallres(x[:b]), preprocess.smallres(x.flip(0)[:b])
+    yb = torch.arange(b, device=dev) % 2
+    gen = torch.Generator(dev).manual_seed(SEED)
+    T.train_step(state, xa, xb, yb, dropout_generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(L_WARM_STEPS):
+        T.train_step(state, xa, xb, yb, dropout_generator=gen)
+    torch.cuda.synchronize()
+    print(f"mtp: SmallRes train step with dropout, warm, batch {b}: "
+          f"{(time.perf_counter() - t0) * 1e3 / L_WARM_STEPS:.2f} ms/step "
+          f"(mean of {L_WARM_STEPS}) on {smi}", flush=True)
+
+    # One-pixel DE through SmallRes: pairs at 224^2, scored at 48^2.
+    predict = tmtp.make_adversarial_predict(L_LOW)
+    rng = np.random.default_rng(SEED + 17)
+    left, right = rand_pairs(rng, L_DE_PAIRS, F_IMAGE, dev)
+    _, labels = one_pixel_targets(predict, m2, left, right)
+    al, ar, res, t_de = timed_one_pixel(predict, m2, left, right, labels,
+                                        G_DE_MAXITER)
+    images = 2 * int(res.nfev.sum())
+    changed = ((al != left).any(-1).flatten(1).sum(1)
+               + (ar != right).any(-1).flatten(1).sum(1))
+    check(bool((changed <= 40).all()), f"DE wrote {changed.tolist()} pixels")
+    print(f"mtp: one-pixel DE through SmallRes, {L_DE_PAIRS} pairs of "
+          f"{F_IMAGE}^2 scored at {L_LOW}^2: {t_de:.3f} s, nit "
+          f"{res.nit.tolist()}, {images} images, {images / t_de:.0f} "
+          f"images/s on {smi}", flush=True)
+
+    # The classical-AL drivers, L_AL_ROUNDS rounds each, timed by round.
+    rounds = []
+
+    def timed_learner(cls):
+        class Timed(cls):
+            def query(self, *a, **k):
+                torch.cuda.synchronize()
+                rounds.append(time.perf_counter())
+                return super().query(*a, **k)
+
+        return Timed
+
+    dfw = make_synthetic_dfw(str(out / "dfw"), num_people=L_AL_PEOPLE,
+                             image_size=F_IMAGE, seed=SEED)
+    for name, mod, run in (
+            ("existing_al", existing_al, lambda: existing_al.run_existing_al(
+                parse_config([], config_cls=ExistingALConfig,
+                             data_dir_prefix=dfw, epochs=1, seed=SEED,
+                             model_path=str(out / "active"),
+                             out_model=str(out / "post_active")),
+                featurize=featurize, n_rounds=L_AL_ROUNDS,
+                n_steps=L_TRAIN_STEPS, device=dev)),
+            ("existing_al_mtp", existing_al_mtp,
+             lambda: existing_al_mtp.run_existing_al_mtp(
+                 dataclasses.replace(cfg, lowres_epochs=1,
+                                     lowres_basemodel=str(out / "low_al"),
+                                     out_model=str(out / "post_al")),
+                 n_rounds=L_AL_ROUNDS, n_steps=L_TRAIN_STEPS, device=dev))):
+        learner_cls = mod.ActiveLearner
+        mod.ActiveLearner = timed_learner(learner_cls)
+        rounds.clear()
+        k3.launches = 0
+        try:
+            t0 = time.perf_counter()
+            learner = run()
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            mod.ActiveLearner = learner_cls
+        launched = k3.launches
+        check(len(rounds) == L_AL_ROUNDS and learner._y is not None,
+              f"{name}: {len(rounds)} rounds")
+        per = (t_end - rounds[0]) / len(rounds)
+        print(f"mtp: {name} {t_end - t0:.1f} s, {L_AL_ROUNDS} rounds of "
+              f"{len(learner._y) // L_AL_ROUNDS} queried pairs: {per:.3f} "
+              f"s/round; K3 launches {launched} on {smi}", flush=True)
+        if name == "existing_al":
+            check(launched > 0, "kernel bottleneck was not launched by "
+                  "existing_al")
+            counts["bottleneck"] += launched
+    print(f"mtp: phase (l) {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from alink_tpu_torch import _build
+
+    t_start = time.perf_counter()
+
+    def stamp(phases: str) -> None:
+        print(f"[{phases}] done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -2254,39 +2586,55 @@ def main() -> int:
 
     g = torch.Generator().manual_seed(SEED)
     rng = np.random.default_rng(SEED)
+    stamp("a")
     head, numbers = phase_kernels(dev, g, rng)
+    stamp("b")
     fm, counts = phase_slice(dev, g, rng, head)
+    stamp("c")
 
     phase_speed(fm, torch.as_tensor(
         rng.uniform(0, 255, (BATCH, IMG, IMG, 3)), dtype=torch.float32,
         device=dev), smi)
     del fm
     torch.cuda.empty_cache()
+    stamp("d")
 
     numbers["bottleneck"] = phase_k3(dev, g)
+    stamp("e")
     alink_counts, alink_cfg, f_finetune_s = phase_alink(dev, smi)
     torch.cuda.empty_cache()
+    stamp("f")
     a2_launches = phase_a2(dev, smi)
     torch.cuda.empty_cache()
+    stamp("g")
     counts["qconv"], numbers["qconv"] = phase_k4(dev, g, smi)
     torch.cuda.empty_cache()
+    stamp("h")
     eval_counts = phase_eval(dev, smi)
     torch.cuda.empty_cache()
+    stamp("i")
     resume_counts = phase_resume(dev, smi, alink_cfg, f_finetune_s)
     torch.cuda.empty_cache()
+    stamp("j")
     rest_counts = phase_serving_rest(dev, g, rng, head, smi)
     torch.cuda.empty_cache()
     phase_arc(dev, smi)
+    torch.cuda.empty_cache()
+    stamp("k")
+    mtp_counts = phase_mtp(dev, smi)
+    stamp("l")
     # Each kernel's count is the one from the main paths that run it:
-    # serving, evaluation and (k)'s score matrix for K1, serving, the
-    # augmented loop and (k)'s profiles and L-Net chips for K2,
-    # training, the A2 channel, evaluation and the augmented loop for K3,
-    # its own op path for K4.
+    # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
+    # serving, the augmented loop and (k)'s profiles and L-Net chips for
+    # K2, training, the A2 channel, evaluation, the augmented loop,
+    # run_alink_mtp and existing_al for K3, its own op path for K4.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
                             + eval_counts["bottleneck"]
-                            + resume_counts["bottleneck"])
+                            + resume_counts["bottleneck"]
+                            + mtp_counts["bottleneck"])
     counts["pair_score"] += (eval_counts["pair_score"]
-                             + rest_counts["pair_score"])
+                             + rest_counts["pair_score"]
+                             + mtp_counts["pair_score"])
     counts["affine_warp"] += (resume_counts["affine_warp"]
                               + rest_counts["affine_warp"])
 

@@ -10,12 +10,16 @@ mapping is by name:
                           (kernel (in, out) -> weight (out, in))
     _FrozenBN_i -> bn.i   (gamma, beta, mean, var)
     _PReLU_i -> prelu.i   (alpha)
-    _IRUnit_i -> units.i, _Bottleneck_i -> blocks.i
+    _IRUnit_i -> units.i, _Bottleneck_i -> blocks.i,
+    _SEBottleneck_i -> blocks.i
     fc1_gamma, fc1_beta   (unchanged)
     tower, verify_head    (SmallRes's submodules, unchanged)
+    backbone              (a classifier's backbone, unchanged)
+    SmallResTower_0 -> tower   (SmallResClassifier's tower)
 
-ArcFace and the SmallRes tower flatten NHWC before their dense layer in
-both packages, so that layer needs no permutation beyond the transpose.
+ArcFace, VGG16's pool5 and the SmallRes tower flatten NHWC before their
+dense layer in both packages, so that layer needs no permutation beyond
+the transpose.
 
 ``loop_state_from_jax`` carries a JAX ``ALinkLoop``'s state (student,
 Adadelta state, counters, queue) into a port loop.
@@ -32,15 +36,18 @@ from torch import nn
 
 _MODULE_NAMES = {"Conv": "conv", "Dense": "dense", "_FrozenBN": "bn",
                  "_PReLU": "prelu", "_IRUnit": "units",
-                 "_Bottleneck": "blocks", "hidden": "hidden"}
+                 "_Bottleneck": "blocks", "_SEBottleneck": "blocks",
+                 "hidden": "hidden"}
+_SUBMODULES = {"out": "out", "tower": "tower", "verify_head": "verify_head",
+               "backbone": "backbone", "SmallResTower_0": "tower"}
 
 
 def _module_name(key: str) -> str:
+    if key in _SUBMODULES:
+        return _SUBMODULES[key]
     m = re.fullmatch(r"(.+)_(\d+)", key)
     if m and m.group(1) in _MODULE_NAMES:
         return f"{_MODULE_NAMES[m.group(1)]}.{m.group(2)}"
-    if key in ("out", "tower", "verify_head"):
-        return key
     raise KeyError(f"no port counterpart for parameter group {key!r}")
 
 
@@ -71,8 +78,9 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def load_flax(module: nn.Module, params: Mapping) -> nn.Module:
-    """Load JAX-package parameters into ``module`` (ArcFace, P/R/O-Net,
-    VGGFaceResNet50, SiameseHead or SmallRes); every tensor must match by name and shape
+    """Load JAX-package parameters into ``module`` (ArcFace, P/R/O/L-Net,
+    VGGFaceResNet50, SENet50, VGGFace16, a classifier, SiameseHead or
+    SmallRes); every tensor must match by name and shape
     (``load_state_dict(strict=True)`` raises otherwise)."""
     module.load_state_dict(state_dict_from_flax(params), strict=True)
     return module

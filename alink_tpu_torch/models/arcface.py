@@ -25,29 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _FrozenBN,
-                                           _lecun_normal_, _make_conv)
-
-
-def _make_dense(cin: int, cout: int, generator, device) -> nn.Linear:
-    lin = nn.Linear(cin, cout, device=device)
-    _lecun_normal_(lin.weight, cin, generator)
-    nn.init.zeros_(lin.bias)
-    return lin
-
-
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
-          stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """Convolution in ``dtype``; the bias is added afterwards in ``dtype``
-    (flax's order of rounding)."""
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, stride, padding)
-    if conv.bias is not None:
-        y = y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
-    return y
-
-
-def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _conv, _FrozenBN,
+                                           _make_conv, _make_dense)
 
 
 class _PReLU(nn.Module):

@@ -16,8 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from alink_tpu_torch.models.arcface import (ArcFaceResNet100, _dense,
-                                            _make_dense)
+from alink_tpu_torch.models.arcface import ArcFaceResNet100
+from alink_tpu_torch.models.resnet import _dense, _make_dense
 
 
 def GenderAgeResNet50(**kwargs) -> ArcFaceResNet100:

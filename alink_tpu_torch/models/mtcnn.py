@@ -12,8 +12,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alink_tpu_torch.models.arcface import (_PReLU, _conv, _dense, _make_conv,
-                                            _make_dense)
+from alink_tpu_torch.models.arcface import _PReLU
+from alink_tpu_torch.models.resnet import (_conv, _dense, _make_conv,
+                                           _make_dense)
 
 
 def _ceil_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Frozen batch norm and the VGGFace-ResNet50 teacher featurizer
-(counterpart of ``alink_tpu/models/resnet.py``).
+"""Frozen batch norm and the VGGFace backbones (counterpart of
+``alink_tpu/models/resnet.py``).
 
 ``VGGFaceResNet50`` is the keras_vggface resnet50 to its flattened avg_pool
 (2048-d).  Its parameters are laid out as the flax module's (``Conv_0``,
@@ -7,9 +7,17 @@
 and its forward is the counterpart of ``vggface_resnet50_fused_apply``: the
 13 stride-1 bottlenecks run through ``ops.resblock.bottleneck_chain`` (kernel
 K3 on a CUDA tensor, its plain version on a CPU tensor), the stem and the 3
-strided blocks are plain PyTorch in bf16.  The JAX model's ``s2d_stem`` and
-``scan_units`` are TPU-only knobs and are not ported.  ``VGGFace16`` and
-``SENet50`` are not ported yet.
+strided blocks are plain PyTorch in bf16.  ``trainable=True`` gives the
+classifier's backbone (``models/classify.py``): every parameter, BN
+statistics included, trains, and the stride-1 blocks fold on every forward.
+
+``SENet50`` (keras_vggface senet50, 2048-d) and ``VGGFace16`` (vgg16 to its
+NHWC-flattened pool5, 25,088-d at 224^2) back the identification
+classifiers only; they run as cuDNN convolutions in ``dtype``: SENet50's SE
+gate sits between a block's last BN and its add, so K3 cannot fuse its
+blocks (the JAX package runs them outside any Pallas kernel too).  The JAX
+models' ``s2d_stem`` and ``scan_units`` are TPU-only knobs and are not
+ported.
 """
 
 from __future__ import annotations
@@ -34,18 +42,25 @@ class _FrozenBN(nn.Module):
     Scale and shift are formed in f32, cast to ``dtype``, and applied in
     ``dtype``, as in the JAX module.  ``eps`` must match the framework
     that produced the statistics (2e-5 for insightface MXNet checkpoints).
+    gamma, beta, mean and var are buffers, or with ``trainable`` parameters
+    (the same state-dict names): the JAX module holds all four as params,
+    and its classifier trainer gradient-steps the statistics too.
     """
 
     def __init__(self, channels: int, eps: float = KERAS_BN_EPS,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 trainable: bool = False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
         for name, fill in (("gamma", 1.0), ("beta", 0.0), ("mean", 0.0),
                            ("var", 1.0)):
-            self.register_buffer(
-                name, torch.full((channels,), fill, dtype=torch.float32,
-                                 device=device))
+            t = torch.full((channels,), fill, dtype=torch.float32,
+                           device=device)
+            if trainable:
+                self.register_parameter(name, nn.Parameter(t))
+            else:
+                self.register_buffer(name, t)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         root = torch.sqrt(self.var + self.eps)
@@ -73,6 +88,27 @@ def _make_conv(cin: int, cout: int, k: int, bias: bool, generator,
     return conv
 
 
+def _make_dense(cin: int, cout: int, generator, device) -> nn.Linear:
+    lin = nn.Linear(cin, cout, device=device)
+    _lecun_normal_(lin.weight, cin, generator)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
+          stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Convolution in ``dtype``; the bias is added afterwards in ``dtype``
+    (flax's order of rounding)."""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, stride, padding)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
+    return y
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
+
 def _fold_bn(bn: _FrozenBN) -> tuple[torch.Tensor, torch.Tensor]:
     """Frozen BN -> (scale, shift) in f32, as the JAX ``_fold_bn``."""
     s = bn.gamma / torch.sqrt(bn.var + bn.eps)
@@ -85,7 +121,7 @@ class _Bottleneck(nn.Module):
     """
 
     def __init__(self, cin: int, filters: int, project: bool, dtype,
-                 generator, device):
+                 generator, device, trainable: bool = False):
         super().__init__()
         f = filters
         self.dtype = dtype
@@ -96,7 +132,7 @@ class _Bottleneck(nn.Module):
             + ([_make_conv(cin, 4 * f, 1, False, generator, device)]
                if project else []))
         self.bn = nn.ModuleList(
-            _FrozenBN(c, KERAS_BN_EPS, dtype, device=device)
+            _FrozenBN(c, KERAS_BN_EPS, dtype, device, trainable)
             for c in (f, f, 4 * f) + ((4 * f,) if project else ()))
 
     def strided(self, y: torch.Tensor) -> torch.Tensor:
@@ -133,6 +169,18 @@ def _tf_same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _stem(x: torch.Tensor, conv: nn.Conv2d, bn: _FrozenBN,
+          dtype: torch.dtype) -> torch.Tensor:
+    """The keras_vggface stem on NHWC ``x``: TF-'SAME' 7x7 s2 conv (pads
+    asymmetrically, (2, 3) at 224), BN, ReLU, then a VALID 3x3 s2 max-pool
+    (55x55 at 224).  NCHW out."""
+    y = x.to(dtype).permute(0, 3, 1, 2)
+    ph = _tf_same_pad(y.shape[2], 7, 2)
+    pw = _tf_same_pad(y.shape[3], 7, 2)
+    y = F.conv2d(F.pad(y, pw + ph), conv.weight.to(dtype), None, 2)
+    return F.max_pool2d(torch.relu(bn(y)), 3, 2)
+
+
 class VGGFaceResNet50(nn.Module):
     """keras_vggface resnet50 to the flattened avg_pool: (N, H, W, 3)
     preprocessed NHWC -> (N, 2048) f32.
@@ -144,32 +192,44 @@ class VGGFaceResNet50(nn.Module):
     forward runs flax's bf16 BN; the two agree to a relative max error of
     0.02 (``tests/test_resblock.py``).
 
-    The stride-1 blocks' weights are folded into the kernel's layout once
-    and cached; loading a state dict or moving the module drops the cache.
-    Call ``refold()`` after editing parameters in place.  The parameters do
-    not require grad: the teacher is frozen.
+    Frozen (the default, the teacher): the parameters do not require grad,
+    BN statistics are buffers, and the stride-1 blocks' weights are folded
+    into the kernel's layout once and cached; loading a state dict or
+    moving the module drops the cache.  Call ``refold()`` after editing
+    parameters in place.
+
+    ``trainable=True`` (the classifier's backbone): every parameter trains,
+    BN gamma, beta, mean and var included (parameters, as in the JAX
+    module), and the stride-1 blocks fold on every forward, inside autograd
+    when grad is enabled (``ops.resblock.BottleneckS1`` then gives the
+    weight gradients); nothing is cached.
     """
+
+    feature_dim = 2048
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 trainable: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.dtype = dtype
+        self.trainable = trainable
         self.conv = nn.ModuleList([_make_conv(3, 64, 7, False, generator,
                                               device)])
-        self.bn = nn.ModuleList([_FrozenBN(64, KERAS_BN_EPS, dtype,
-                                           device=device)])
+        self.bn = nn.ModuleList([_FrozenBN(64, KERAS_BN_EPS, dtype, device,
+                                           trainable)])
         blocks = []
         cin = 64
         for blocks_n, w in zip(self.stage_sizes, (64, 128, 256, 512)):
             for b in range(blocks_n):
                 blocks.append(_Bottleneck(cin, w, b == 0, dtype, generator,
-                                          device))
+                                          device, trainable))
                 cin = 4 * w
         self.blocks = nn.ModuleList(blocks)
-        # The frozen teacher: gradients flow to the input only (FGSM).
-        self.requires_grad_(False)
+        if not trainable:
+            # The frozen teacher: gradients flow to the input only (FGSM).
+            self.requires_grad_(False)
         self._folded: tuple[torch.device, list] | None = None
         self.register_load_state_dict_post_hook(_drop_folded)
 
@@ -181,18 +241,28 @@ class VGGFaceResNet50(nn.Module):
         self.refold()
         return super()._apply(fn, recurse)
 
+    def _fold(self) -> list[tuple[BottleneckWeights, ...]]:
+        """Each stage's stride-1 blocks, BN folded (differentiable f32)."""
+        stages, idx = [], 0
+        for stage, n_blocks in enumerate(self.stage_sizes):
+            first = 1 if stage > 0 else 0
+            stages.append(tuple(
+                bottleneck_weights(blk)
+                for blk in self.blocks[idx + first:idx + n_blocks]))
+            idx += n_blocks
+        return stages
+
     def _stride1_weights(self, device) -> list[tuple[BottleneckWeights, ...]]:
-        """Each stage's stride-1 blocks, BN folded, in the kernel's layout
-        on ``device`` (``ops.resblock.kernel_weights``)."""
+        """The stride-1 blocks' weights: for a frozen model in the kernel's
+        layout on ``device`` (``ops.resblock.kernel_weights``) and cached;
+        for a trainable one folded anew (``bottleneck_chain`` lays them out
+        for the kernel)."""
+        if self.trainable:
+            return self._fold()
         if self._folded is None or self._folded[0] != device:
-            stages, idx = [], 0
-            for stage, n_blocks in enumerate(self.stage_sizes):
-                first = 1 if stage > 0 else 0
-                stages.append(tuple(
-                    kernel_weights(bottleneck_weights(blk), device)
-                    for blk in self.blocks[idx + first:idx + n_blocks]))
-                idx += n_blocks
-            self._folded = (device, stages)
+            self._folded = (device, [
+                tuple(kernel_weights(w, device) for w in run)
+                for run in self._fold()])
         return self._folded[1]
 
     def forward(self, x: torch.Tensor,
@@ -200,16 +270,12 @@ class VGGFaceResNet50(nn.Module):
         """``chain`` runs each stage's stride-1 blocks (NHWC in and out);
         the default dispatches on the tensor's device.
 
-        Differentiable in ``x`` when grad is enabled (FGSM): the stride-1
-        blocks then give dx only (``ops.resblock.BottleneckS1``), so the
-        featurizer is frozen; inference callers run it under
-        ``torch.no_grad``."""
+        Frozen, the forward is differentiable in ``x`` when grad is enabled
+        (FGSM): the stride-1 blocks then give dx only; inference callers
+        run it under ``torch.no_grad``.  Trainable, it is differentiable in
+        ``x`` and every parameter."""
         dt = self.dtype
-        y = x.to(dt).permute(0, 3, 1, 2)
-        ph = _tf_same_pad(y.shape[2], 7, 2)
-        pw = _tf_same_pad(y.shape[3], 7, 2)
-        y = F.conv2d(F.pad(y, pw + ph), self.conv[0].weight.to(dt), None, 2)
-        y = F.max_pool2d(torch.relu(self.bn[0](y)), 3, 2)
+        y = _stem(x, self.conv[0], self.bn[0], dt)
         idx = 0
         for stage, run in enumerate(self._stride1_weights(x.device)):
             if stage > 0:
@@ -226,3 +292,125 @@ class VGGFaceResNet50(nn.Module):
 
 def _drop_folded(module: VGGFaceResNet50, incompatible_keys) -> None:
     module.refold()
+
+
+class _SEBottleneck(nn.Module):
+    """ResNet-v1 bottleneck with a squeeze-and-excitation gate (reduction
+    16) between its last BN and the add, parameters named as the flax
+    ``_SEBottleneck``: conv.0-2 (+ conv.3), bn.0-2 (+ bn.3), dense.0-1.
+    NCHW in and out."""
+
+    def __init__(self, cin: int, filters: int, stride: int, project: bool,
+                 dtype, generator, device, reduction: int = 16):
+        super().__init__()
+        f = filters
+        self.stride = stride
+        self.dtype = dtype
+        self.conv = nn.ModuleList(
+            [_make_conv(cin, f, 1, False, generator, device),
+             _make_conv(f, f, 3, False, generator, device),
+             _make_conv(f, 4 * f, 1, False, generator, device)]
+            + ([_make_conv(cin, 4 * f, 1, False, generator, device)]
+               if project else []))
+        self.bn = nn.ModuleList(
+            _FrozenBN(c, KERAS_BN_EPS, dtype, device, trainable=True)
+            for c in (f, f, 4 * f) + ((4 * f,) if project else ()))
+        self.dense = nn.ModuleList(
+            [_make_dense(4 * f, 4 * f // reduction, generator, device),
+             _make_dense(4 * f // reduction, 4 * f, generator, device)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        xs = x[:, :, ::self.stride, ::self.stride]   # a strided 1x1 conv
+        y = torch.relu(self.bn[0](_conv(xs, self.conv[0], dt)))
+        y = torch.relu(self.bn[1](_conv(y, self.conv[1], dt, padding=1)))
+        y = self.bn[2](_conv(y, self.conv[2], dt))
+        # SE gate in f32: spatial mean -> Dense + ReLU -> Dense + sigmoid,
+        # the channel scale applied in ``dtype``.
+        se = y.float().mean(dim=(2, 3))
+        se = torch.relu(F.linear(se, self.dense[0].weight, self.dense[0].bias))
+        se = torch.sigmoid(F.linear(se, self.dense[1].weight,
+                                    self.dense[1].bias))
+        y = y * se.to(dt)[:, :, None, None]
+        if len(self.conv) == 4:
+            shortcut = self.bn[3](_conv(xs, self.conv[3], dt))
+        else:
+            shortcut = x.to(dt)
+        return torch.relu(y + shortcut)
+
+
+class SENet50(nn.Module):
+    """keras_vggface senet50 to the flattened avg_pool: (N, H, W, 3)
+    preprocessed NHWC -> (N, 2048) f32 (reference: code/model.py:126-141).
+    The keras_vggface stem of ``VGGFaceResNet50``, then 16 SE bottlenecks
+    (3, 4, 6, 3), all in ``dtype``; every parameter trains, BN statistics
+    included (parameters, as in the JAX module)."""
+
+    feature_dim = 2048
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.stage_sizes = tuple(stage_sizes)
+        self.dtype = dtype
+        self.conv = nn.ModuleList([_make_conv(3, 64, 7, False, generator,
+                                              device)])
+        self.bn = nn.ModuleList([_FrozenBN(64, KERAS_BN_EPS, dtype, device,
+                                           trainable=True)])
+        blocks = []
+        cin = 64
+        for stage, (blocks_n, w) in enumerate(zip(self.stage_sizes,
+                                                  (64, 128, 256, 512))):
+            for b in range(blocks_n):
+                stride = 2 if (b == 0 and stage > 0) else 1
+                blocks.append(_SEBottleneck(cin, w, stride, b == 0, dtype,
+                                            generator, device))
+                cin = 4 * w
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _stem(x, self.conv[0], self.bn[0], self.dtype)
+        for blk in self.blocks:
+            y = blk(y)
+        return y.float().mean(dim=(2, 3))
+
+
+_VGG16_WIDTHS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
+                 (512, 512, 512))
+
+
+class VGGFace16(nn.Module):
+    """keras_vggface vgg16 to the flattened pool5: (N, H, W, 3) preprocessed
+    NHWC -> (N, 512 * (H / 32) * (W / 32)) f32, 25,088-d at 224^2
+    (reference: code/siamese.py:187-200).  13 biased 3x3 SAME convs with
+    ReLU and five 2x2 max-pools, in ``dtype``.  pool5 flattens in NHWC
+    order, as the JAX module does, so converted fc6 rows need no
+    permutation; ``input_size`` fixes ``feature_dim`` (the JAX module
+    infers its consumer's width on first call)."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 input_size: tuple[int, int] = (224, 224),
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        convs, cin = [], 3
+        for widths in _VGG16_WIDTHS:
+            for w in widths:
+                convs.append(_make_conv(cin, w, 3, True, generator, device))
+                cin = w
+        self.conv = nn.ModuleList(convs)
+        h, w = input_size
+        self.feature_dim = 512 * (h // 32) * (w // 32)
+        if not self.feature_dim:
+            raise ValueError(f"input {input_size} is below VGG16's "
+                             "smallest, 32^2")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.permute(0, 3, 1, 2)
+        convs = iter(self.conv)
+        for widths in _VGG16_WIDTHS:
+            for _ in widths:
+                y = torch.relu(_conv(y, next(convs), self.dtype, padding=1))
+            y = F.max_pool2d(y, 2, 2)
+        return y.permute(0, 2, 3, 1).reshape(y.shape[0], -1).float()

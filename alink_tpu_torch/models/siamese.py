@@ -32,8 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alink_tpu_torch.models.arcface import _conv, _dense, _make_dense
-from alink_tpu_torch.models.resnet import _make_conv
+from alink_tpu_torch.models.resnet import (_conv, _dense, _make_conv,
+                                           _make_dense)
 
 
 class SiameseHead(nn.Module):
@@ -90,12 +90,12 @@ DrawFn = Callable[[tuple, torch.Generator, torch.device], torch.Tensor]
 
 
 def torch_keep(shape: tuple, generator: torch.Generator | None,
-               device) -> torch.Tensor:
-    """The default ``draw``: keep each unit with probability ``KEEP``."""
+               device, keep: float = KEEP) -> torch.Tensor:
+    """The default ``draw``: keep each unit with probability ``keep``."""
     if generator is None:
         raise ValueError("a training forward with dropout needs a "
                          "torch.Generator on the model's device")
-    return torch.rand(shape, generator=generator, device=device) < KEEP
+    return torch.rand(shape, generator=generator, device=device) < keep
 
 
 class SmallResTower(nn.Module):

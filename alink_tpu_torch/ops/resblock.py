@@ -23,14 +23,15 @@ memory (``ops/qconv.py`` holds the chainable flat layout of K4).
 - ``bottleneck_chain``        — dispatcher over a chain of blocks: the kernel
   on CUDA tensors (the padded width carried from block to block and sliced
   off once at the exit), the plain version on CPU tensors.  With grad
-  enabled and an input that requires it, each block runs as
+  enabled and an input or a weight that requires it, each block runs as
   ``BottleneckS1``, a ``torch.autograd.Function`` whose forward is that
   dispatch (the kernel pads and slices per block there) and whose
-  backward gives dx only (the teacher is frozen): it recomputes y1, y2 and
-  the ReLU masks with differentiable PyTorch ops (f32, the 3x3 as a
-  convolution) and back-propagates through them.  The TPU kernel has no
-  backward either: the JAX package's FGSM gradient comes from XLA's
-  autodiff of unfused convolutions.
+  backward recomputes y1, y2 and the ReLU masks with differentiable
+  PyTorch ops (f32, the 3x3 as a convolution) and back-propagates through
+  them: dx for FGSM through the frozen teacher, and the weight gradients
+  too for the classifier's trainable backbone.  The TPU kernel has no
+  backward either: the JAX package's gradients come from XLA's autodiff
+  of unfused convolutions.
 """
 
 from __future__ import annotations
@@ -483,11 +484,17 @@ def bottleneck_chain_reference(x: torch.Tensor,
     return x
 
 
+def _laid_out(wts: BottleneckWeights, device) -> BottleneckWeights:
+    """``wts`` in the kernel's layout: as given when they carry it (a
+    frozen model caches it), else made now (a trainable model's fold)."""
+    return wts if wts.packed is not None else kernel_weights(wts, device)
+
+
 def _block_forward(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
     """One block without autograd: the kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     if x.is_cuda:
-        return bottleneck_s1_kernel(x, wts)
+        return bottleneck_s1_kernel(x, _laid_out(wts, x.device))
     if x.device.type != "cpu":
         raise ValueError(f"no bottleneck for device {x.device}")
     return bottleneck_s1_reference(x, wts)
@@ -515,35 +522,54 @@ def _block_recompute(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
 
 
 class BottleneckS1(torch.autograd.Function):
-    """One stride-1 block with a gradient for its input only."""
+    """One stride-1 block with gradients for its input and for each weight
+    tensor that requires one.
+
+    Forward: the kernel on a CUDA tensor (its layout made without
+    autograd when the weights arrive unpacked: a trainable model passes
+    the fold of its parameters), the plain version on a CPU tensor.
+    Backward: the block recomputed in f32 from the saved input and weights
+    (``_block_recompute``) and differentiated in both; autograd carries the
+    weight gradients on through the fold to the convolutions and the BN
+    parameters.  The TPU kernel has no backward: the JAX classifier trains
+    this backbone through flax's plain forward."""
 
     @staticmethod
     def forward(ctx, x, *wts):
         wts = BottleneckWeights(*wts)
-        ctx.wts = wts
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, *wts[:len(_TENSORS)])
         return _block_forward(x, wts)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (x,) = ctx.saved_tensors
+        x, *ts = ctx.saved_tensors
+        need = ctx.needs_input_grad[:1 + len(_TENSORS)]
         with torch.enable_grad():
-            xr = _bf16(x.detach()).requires_grad_(True)
-            out = _block_recompute(xr, ctx.wts)
-            (dx,) = torch.autograd.grad(out, xr, grad_out.float())
-        return (dx.to(x.dtype),) + (None,) * len(BottleneckWeights._fields)
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip([_bf16(x)] + ts, need)]
+            out = _block_recompute(leaves[0], BottleneckWeights(*leaves[1:]))
+            wanted = [t for t, n in zip(leaves, need) if n and t is not None]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out.float()))
+        return tuple(
+            next(grads).to(t.dtype) if n and t is not None else None
+            for t, n in zip([x] + ts, need)) + (None,) * (
+                len(BottleneckWeights._fields) - len(_TENSORS))
 
 
 def bottleneck_chain(x: torch.Tensor,
                      blocks: tuple[BottleneckWeights, ...]) -> torch.Tensor:
-    """A chain of stride-1 bottlenecks: the kernel on a CUDA tensor, the
-    plain version on a CPU tensor; differentiable in ``x`` when grad is
-    enabled and ``x`` requires it.  NHWC in, NHWC bf16 out."""
-    grad = torch.is_grad_enabled() and x.requires_grad
+    """A chain of stride-1 bottlenecks: the kernel on a CUDA tensor (the
+    weights laid out for it where they are not yet), the plain version on
+    a CPU tensor; differentiable (``BottleneckS1``) when grad is enabled
+    and ``x`` or a weight requires it.  NHWC in, NHWC bf16 out."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or any(
+        t is not None and t.requires_grad
+        for wts in blocks for t in wts[:len(_TENSORS)]))
     if x.is_cuda and not grad and blocks:
         # The padded width passes from block to block; sliced off once.
         for wts in blocks:
-            x = bottleneck_s1_kernel(x, wts, keep_padded=True)
+            x = bottleneck_s1_kernel(x, _laid_out(wts, x.device),
+                                     keep_padded=True)
         cout = blocks[-1].w2.shape[1]
         return x if x.shape[-1] == cout else x[..., :cout].contiguous()
     for wts in blocks:

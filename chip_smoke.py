@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, the A2 channel, the
 int8 conv, the DFW evaluation chain, the loop's resume, supervision and
-augmentation, the rest of detect and serving, the ArcFace driver, and the
-Multi-PIE driver with the classical-AL baselines once on one NVIDIA GPU.
+augmentation, the rest of detect and serving, the ArcFace driver, the
+Multi-PIE driver with the classical-AL baselines, and the identification
+classifiers with the weight tools once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -132,6 +133,23 @@ l. the Multi-PIE cross-resolution path at full width:
    0.02, multipliers 0 and 1/0.75); one-pixel DE images/s at 48^2; then
    ``existing_al`` (DFW, K3 counted) and ``existing_al_mtp``, 2 rounds
    each, s/round.
+
+m. the side models and the identification classifiers at full width:
+   ``SENet50`` and ``VGGFace16`` at 224^2, bf16, batch 32 (random weights
+   from the seed) against f32 copies of the same weights on the card
+   (relative L2 2e-2, the relative max printed), images/s; a trainable VGGFace-ResNet50's K3
+   launches per training forward (13) and, block by block at the inputs
+   and upstream gradients of a training pass, every conv weight's and BN
+   tensor's gradient through ``BottleneckS1`` (K3 forward, f32 recompute
+   backward) against the plain chain's autograd (relative L2 2e-2);
+   ``fit_classifier`` on ResNet50Classifier (K3 counted: 13 per forward),
+   SENet50Classifier and VGG16Classifier (hid 512) at 224^2 bf16 batch 32
+   and SmallResClassifier at 48^2 with dropout, out_dim 1,000, on 256
+   synthetic class-separable images (the cuts printed): train step ms
+   first and warm, images/s, every loss finite, every BN statistic of
+   ResNet50Classifier moved; then a seeded r100-shaped MXNet ``.params``
+   file through ``tools.convert_mxnet`` into ``ArcFaceResNet100``
+   (strict), 64 chips embedded to finite unit-norm (1e-3) vectors.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -2556,6 +2574,346 @@ def phase_mtp(dev, smi: str) -> dict:
     return counts
 
 
+M_IMAGE = 224
+M_BATCH = 32
+M_OUT = 1000             # identities of the classifier heads
+M_HID = 512              # VGG16Classifier's fc6 / fc7
+M_IMAGES = 256           # synthetic class-separable images per classifier
+M_CLASSES = 8            # classes the images encode (of M_OUT outputs)
+M_EPOCHS = 2             # fit_classifier epochs (CustomModel: early stop)
+M_LOW = 48               # SmallResClassifier's input
+# bf16 backbone vs its f32 copy, relative L2; the relative max is printed.
+# It is the tail of bf16's own rounding through 16 SE blocks: the JAX
+# package's bf16 SENet50 against its f32 one passes 1e-2 on 4 images at
+# 224^2, and the port's is no further (tests/test_torch_port_classify.py,
+# test_bf16_senet50_is_as_far_from_f32_as_jax_bf16); 32 images reach
+# further.
+M_FWD_LIMIT = 2e-2
+M_GRAD_LIMIT = 2e-2      # K3 route vs the plain chain's autograd, rel. L2
+M_ARC_CHIPS = 64
+M_NORM_LIMIT = 1e-3
+M_R100 = (3, 13, 30, 3)
+M_CUTS = (f"fit_classifier: {M_IMAGES} synthetic images of {M_CLASSES} "
+          f"classes (a face dataset: thousands of identities), "
+          f"{M_EPOCHS} epochs (EarlyStopping ends CustomModel's fits), "
+          f"out_dim {M_OUT}",
+          "the converted ArcFace: a seeded random r100-shaped .params file "
+          "(model-r100-ii's names and shapes), not the released weights")
+
+
+def _mxnet_params(path: Path, arrays: dict) -> None:
+    """Write ``arrays`` as an ``mx.nd.save`` dict file (NDArray V2 blobs,
+    f32, ``arg:`` names): uint64 magic 0x112, reserved, count; per blob
+    uint32 magic, int32 storage type 0, uint32 ndim, int64 dims, int32
+    dev_type, dev_id, type_flag, the data; then the names."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<QQQ", 0x112, 0, len(arrays)))
+        for v in arrays.values():
+            f.write(struct.pack("<IiI", 0xF993FAC9, 0, v.ndim))
+            f.write(struct.pack(f"<{v.ndim}q", *v.shape))
+            f.write(struct.pack("<iii", 1, 0, 0))
+            f.write(np.ascontiguousarray(v, np.float32).tobytes())
+        f.write(struct.pack("<Q", len(arrays)))
+        for k in arrays:
+            name = f"arg:{k}".encode()
+            f.write(struct.pack("<Q", len(name)) + name)
+
+
+def _r100_raw(rng) -> dict:
+    """LResNet100E-II parameters in insightface's names and MXNet layouts
+    (OIHW, the fc over an NCHW flatten), variance-preserving random
+    values so the 100-layer forward stays finite."""
+    raw = {}
+
+    def conv(name, cin, cout, k):
+        raw[f"{name}_weight"] = rng.standard_normal(
+            (cout, cin, k, k), np.float32) * np.float32(
+                (2.0 / (k * k * cin)) ** 0.5)
+
+    def bn(name, c):
+        raw[f"{name}_gamma"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        raw[f"{name}_beta"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        raw[f"{name}_moving_mean"] = (0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        raw[f"{name}_moving_var"] = rng.uniform(0.9, 1.1, c).astype(
+            np.float32)
+
+    def prelu(name, c):
+        raw[f"{name}_gamma"] = rng.uniform(0.1, 0.3, c).astype(np.float32)
+
+    conv("conv0", 3, 64, 3)
+    bn("bn0", 64)
+    prelu("relu0", 64)
+    cin = 64
+    for s, (units, w) in enumerate(zip(M_R100, (64, 128, 256, 512)), 1):
+        for u in range(1, units + 1):
+            base = f"stage{s}_unit{u}"
+            bn(f"{base}_bn1", cin)
+            conv(f"{base}_conv1", cin, w, 3)
+            bn(f"{base}_bn2", w)
+            prelu(f"{base}_relu1", w)
+            conv(f"{base}_conv2", w, w, 3)
+            bn(f"{base}_bn3", w)
+            if u == 1:
+                conv(f"{base}_conv1sc", cin, w, 1)
+                bn(f"{base}_sc", w)
+            cin = w
+    bn("bn1", cin)
+    raw["pre_fc1_weight"] = rng.standard_normal(
+        (512, cin * 49), np.float32) * np.float32((1.0 / (cin * 49)) ** 0.5)
+    raw["pre_fc1_bias"] = np.zeros(512, np.float32)
+    bn("fc1", 512)
+    return raw
+
+
+def phase_classify(dev, smi: str) -> dict:
+    """(m): the side models and the identification classifiers at full
+    width: SENet50 and VGGFace16 in bf16 against their f32 copies, K3's
+    weight gradients block by block against the plain chain's autograd,
+    ``fit_classifier`` on the four classifiers (K3 counted in
+    ResNet50Classifier's), then an r100 ``.params`` file through
+    ``tools.convert_mxnet`` into ArcFace; returns K3's launch count in the
+    classifiers' fits."""
+    import tempfile
+
+    from alink_tpu_torch import train as T
+    from alink_tpu_torch.models import (ArcFaceResNet100, ResNet50Classifier,
+                                        SENet50, SENet50Classifier,
+                                        SmallResClassifier, VGG16Classifier,
+                                        VGGFace16, VGGFaceResNet50,
+                                        preprocess)
+    from alink_tpu_torch.models.resnet import bottleneck_weights
+    from alink_tpu_torch.ops import resblock
+    from alink_tpu_torch.tools import convert_mxnet
+    from alink_tpu_torch.train import checkpoint
+    from alink_tpu_torch.train import classifier as tclassifier
+
+    t_phase = time.perf_counter()
+    for line in M_CUTS:
+        print(f"classify cut: {line}", flush=True)
+    k3 = resblock.bottleneck_s1_kernel
+    gd = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def seeded():
+        return torch.Generator().manual_seed(SEED)
+
+    # 1. SENet50 and VGGFace16, bf16 against an f32 copy of the same
+    # weights on the same card (TF32 off: the copy is f32 throughout).
+    x = torch.rand((M_BATCH, M_IMAGE, M_IMAGE, 3), generator=gd,
+                   device=dev) * 255.0
+    for name, make, version in (
+            ("SENet50", lambda dt: SENet50(dtype=dt, generator=seeded(),
+                                           device=dev), 2),
+            ("VGGFace16", lambda dt: VGGFace16(dt, generator=seeded(),
+                                               device=dev), 1)):
+        model, ref = make(torch.bfloat16), make(torch.float32)
+        xp = preprocess.vggface(x, version=version)
+        with torch.no_grad():
+            got, want = model(xp), ref(xp)
+            ms = cuda_ms(lambda: model(xp), iters=5, warmup=2)
+        rel = float((got.float() - want).norm() / want.norm())
+        rel_max = maxdiff(got, want) / float(want.abs().max())
+        print(f"classify: {name} {M_IMAGE}^2 bf16 batch {M_BATCH}: "
+              f"{tuple(got.shape)}, vs its f32 copy relative L2 {rel:.3e} "
+              f"(limit {M_FWD_LIMIT}), relative max {rel_max:.3e}; "
+              f"{ms:.3f} ms, {M_BATCH / ms * 1e3:.1f} images/s on {smi}",
+              flush=True)
+        check(bool(torch.isfinite(got).all()) and rel <= M_FWD_LIMIT,
+              f"{name} bf16 vs f32 relative L2 {rel}")
+        del model, ref, got, want
+    torch.cuda.empty_cache()
+
+    # 2. K3 with weight gradients: a trainable VGGFace-ResNet50's training
+    # forward launches K3 once per stride-1 block; each block's gradients
+    # (conv weights, BN gamma, beta, mean, var) through BottleneckS1 (K3
+    # forward, f32 recompute backward) against the plain arithmetic's
+    # autograd, at the inputs and upstream gradients of that pass.
+    net = VGGFaceResNet50(generator=seeded(), device=dev, trainable=True)
+    g = seeded()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith((".gamma", ".var")):
+                p.copy_(0.5 + torch.rand(p.shape, generator=g))
+            elif name.endswith((".beta", ".mean")):
+                p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    xp = preprocess.vggface(x, version=2)
+    k3.launches = 0
+    net(xp)
+    fwd_launches = k3.launches
+    stride1, idx = [], 0
+    for stage, n in enumerate(net.stage_sizes):
+        stride1 += list(net.blocks[idx + (1 if stage else 0):idx + n])
+        idx += n
+    recs = []
+
+    def tap(y, blocks):
+        for wts in blocks:
+            rec = [y.detach(), None]
+            recs.append(rec)
+            y = resblock.BottleneckS1.apply(y, *wts)
+            y.register_hook(lambda gy, rec=rec: rec.__setitem__(1, gy))
+        return y
+
+    v = torch.randn(2048, generator=g).to(dev)
+    (net(xp, chain=tap) @ v).sum().backward()
+    check(len(recs) == len(stride1) == 13 and fwd_launches == 13,
+          f"K3 launches per training forward {fwd_launches}, "
+          f"{len(recs)} blocks")
+    worst, worst_name = 0.0, ""
+    for i, (blk, (xi, gy)) in enumerate(zip(stride1, recs)):
+        params = list(blk.named_parameters())
+        tensors = [p for _, p in params]
+        gk = torch.autograd.grad(resblock.BottleneckS1.apply(
+            xi, *bottleneck_weights(blk)), tensors, gy)
+        gp = torch.autograd.grad(resblock._block_plain(
+            xi.float(), bottleneck_weights(blk)), tensors, gy)
+        for (name, _), a, b in zip(params, gk, gp):
+            check(float(b.norm()) > 0, f"block {i} {name}: zero gradient")
+            rel = float((a - b).norm() / b.norm())
+            if rel > worst:
+                worst, worst_name = rel, f"block {i} {name}"
+    print(f"classify: K3 with weight gradients, 13 stride-1 blocks of a "
+          f"trainable VGGFace-ResNet50 at batch {M_BATCH}: {fwd_launches} "
+          f"K3 launches per training forward; every conv weight and BN "
+          f"tensor's gradient vs the plain chain's autograd: worst "
+          f"relative L2 {worst:.3e} ({worst_name}; limit {M_GRAD_LIMIT})",
+          flush=True)
+    check(worst <= M_GRAD_LIMIT, f"K3 weight gradients relative {worst}")
+    del net, recs
+    torch.cuda.empty_cache()
+
+    # 3. fit_classifier on the four classifiers, each step timed.
+    labels = torch.randint(0, M_CLASSES, (M_IMAGES,), generator=gd,
+                           device=dev)
+    bases = torch.rand((M_CLASSES, 1, 1, 3), generator=gd, device=dev)
+    real_step = tclassifier.classifier_train_step
+    counts = {"bottleneck": 0}
+    for name, make, size in (
+            ("ResNet50Classifier", lambda: ResNet50Classifier(
+                M_OUT, generator=seeded(), device=dev), M_IMAGE),
+            ("SENet50Classifier", lambda: SENet50Classifier(
+                M_OUT, generator=seeded(), device=dev), M_IMAGE),
+            ("VGG16Classifier", lambda: VGG16Classifier(
+                M_OUT, M_HID, input_size=(M_IMAGE, M_IMAGE),
+                generator=seeded(), device=dev), M_IMAGE),
+            ("SmallResClassifier", lambda: SmallResClassifier(
+                M_OUT, input_size=(M_LOW, M_LOW), generator=seeded(),
+                device=dev), M_LOW)):
+        # Class-separable: each class a colour, plus noise.
+        imgs = (bases[labels] * 200.0 + torch.rand(
+            (M_IMAGES, size, size, 3), generator=gd, device=dev) * 55.0)
+        if name != "SmallResClassifier":
+            imgs = preprocess.vggface(imgs, version=1 if name.startswith(
+                "VGG") else 2)
+        model = make()
+        state = T.create_classifier_state(model)
+        stats = {k: p.detach().clone() for k, p in model.named_parameters()
+                 if k.endswith((".mean", ".var"))}
+        steps = []
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real_step(*a, **k)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0, a[1].shape[0],
+                          float(res[1])))
+            return res
+
+        tclassifier.classifier_train_step = timed
+        try:
+            k3.launches = 0
+            state, logs = T.fit_classifier(
+                state, imgs, labels, epochs=M_EPOCHS, batch_size=M_BATCH,
+                generator=seeded(),
+                dropout_generator=torch.Generator(device=dev).manual_seed(
+                    SEED))
+            torch.cuda.synchronize()
+            launched = k3.launches
+        finally:
+            tclassifier.classifier_train_step = real_step
+        full = [t for t, n, _ in steps[1:] if n == M_BATCH]
+        warm = float(np.median(full)) * 1e3
+        losses = [loss for _, _, loss in steps]
+        print(f"classify: {name} {size}^2 batch {M_BATCH} out {M_OUT}: "
+              f"train step {steps[0][0] * 1e3:.2f} ms first, {warm:.2f} ms "
+              f"warm (median of {len(full)}), {M_BATCH / warm * 1e3:.1f} "
+              f"images/s; {len(steps)} steps, losses "
+              + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; K3 launches {launched} on {smi}", flush=True)
+        for lg in logs:
+            print(f"classify: {name} {lg}", flush=True)
+        check(all(np.isfinite(losses)) and all(
+            np.isfinite(lg.val_loss) for lg in logs) and len(logs)
+              == M_EPOCHS, f"{name}: losses {losses}, logs {logs}")
+        if name == "ResNet50Classifier":
+            evals = len(logs)
+            check(launched == 13 * (len(steps) + evals),
+                  f"K3 launched {launched} times for {len(steps)} steps "
+                  f"and {evals} evaluations")
+            moved = [k for k, p in model.named_parameters()
+                     if k in stats and not torch.equal(p, stats[k])]
+            check(len(moved) == len(stats) > 0,
+                  f"BN statistics moved: {len(moved)} of {len(stats)}")
+            print(f"classify: {name}: all {len(stats)} BN mean and var "
+                  f"tensors moved under Adadelta", flush=True)
+            counts["bottleneck"] = launched
+            # Where a warm step's device time goes (torch.profiler).
+            from alink_tpu_torch.tools.profile_alink import device_split
+
+            split = device_split(lambda: real_step(
+                state, imgs[:M_BATCH], labels[:M_BATCH]), calls=3)
+            total = sum(split.values())
+            print(f"classify: {name} warm step device ms by family: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                  + f"; K3 {split['bottleneck (K3)'] / total:.1%} of "
+                  f"{total:.2f} ms on {smi}", flush=True)
+        else:
+            check(launched == 0, f"{name} launched K3")
+        del model, state, imgs
+        torch.cuda.empty_cache()
+
+    # 4. An r100 .params file through tools.convert_mxnet into ArcFace.
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="classify_", dir=work))
+    t0 = time.perf_counter()
+    raw = _r100_raw(np.random.default_rng(SEED))
+    _mxnet_params(out / "model-0000.params", raw)
+    t_write = time.perf_counter() - t0
+    n_params = sum(a.size for a in raw.values())
+    del raw
+    t0 = time.perf_counter()
+    convert_mxnet.main(["arcface", str(out / "model-0000.params"),
+                        str(out / "r100")])
+    t_convert = time.perf_counter() - t0
+    model = ArcFaceResNet100(M_R100, device=dev)
+    model.load_state_dict(checkpoint.restore(str(out / "r100")), strict=True)
+    chips = torch.rand((M_ARC_CHIPS, 112, 112, 3), generator=gd,
+                       device=dev) * 255.0
+    with torch.no_grad():
+        emb = model(chips)
+    norm_err = float((emb.norm(dim=-1) - 1.0).abs().max())
+    print(f"classify: r100 .params ({n_params} values, "
+          f"{(out / 'model-0000.params').stat().st_size / 2 ** 20:.1f} MiB) "
+          f"written {t_write:.2f} s, converted {t_convert:.2f} s, loaded "
+          f"strict into ArcFaceResNet100; {M_ARC_CHIPS} chips -> "
+          f"{tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}, "
+          f"max |norm - 1| {norm_err:.2e} (limit {M_NORM_LIMIT})",
+          flush=True)
+    check(tuple(emb.shape) == (M_ARC_CHIPS, 512)
+          and bool(torch.isfinite(emb).all()) and norm_err <= M_NORM_LIMIT,
+          f"converted ArcFace embeddings: norm error {norm_err}")
+    import shutil
+
+    shutil.rmtree(out)
+    print(f"classify: phase (m) {time.perf_counter() - t_phase:.1f} s on "
+          f"{smi}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2622,16 +2980,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("k")
     mtp_counts = phase_mtp(dev, smi)
+    torch.cuda.empty_cache()
     stamp("l")
+    classify_counts = phase_classify(dev, smi)
+    stamp("m")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
     # K2, training, the A2 channel, evaluation, the augmented loop,
-    # run_alink_mtp and existing_al for K3, its own op path for K4.
+    # run_alink_mtp, existing_al and ResNet50Classifier's fit for K3, its
+    # own op path for K4.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
                             + eval_counts["bottleneck"]
                             + resume_counts["bottleneck"]
-                            + mtp_counts["bottleneck"])
+                            + mtp_counts["bottleneck"]
+                            + classify_counts["bottleneck"])
     counts["pair_score"] += (eval_counts["pair_score"]
                              + rest_counts["pair_score"]
                              + mtp_counts["pair_score"])

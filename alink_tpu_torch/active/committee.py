@@ -58,6 +58,10 @@ class Committee:
     def num_members(self) -> int:
         return next(iter(self.params.values())).shape[0]
 
+    def member_params(self, index: int) -> dict:
+        """Member ``index``'s {name: tensor}."""
+        return unstack_params(self.params, index)
+
     @torch.no_grad()
     def member_probs(self, left: torch.Tensor,
                      right: torch.Tensor) -> torch.Tensor:

@@ -87,14 +87,17 @@ def load_person_stacks(
     image_res: tuple[int, int],
     *,
     threads: int = 16,
+    pad_to: int | None = None,
 ) -> PersonStacks:
     """Decode per-person path lists into a padded ``PersonStacks``.
 
     ``path_groups[p]`` is the image list of person ``p`` (one group of a
-    ``DFWPerson``).  Stacks pad to the longest group (at least 1).
+    ``DFWPerson``).  Stacks pad to the longest group (at least 1), or to
+    ``pad_to`` (to align independently loaded groups).
     """
     counts = np.asarray([len(g) for g in path_groups], np.int32)
-    s_max = max(1, int(counts.max(initial=0)))
+    s_max = (pad_to if pad_to is not None
+             else max(1, int(counts.max(initial=0))))
     w, h = image_res
     flat_paths = [p for g in path_groups for p in g]
     flat = load_image_list(flat_paths, image_res, threads=threads)

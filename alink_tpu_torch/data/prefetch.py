@@ -13,8 +13,12 @@ stream (``copy_stream``); the consumer's stream waits on an event recorded
 after the copy, and each tensor is ``record_stream``-ed on the consumer's
 stream so the caching allocator does not reuse its memory early.  On the
 CPU the batches become CPU tensors (copies, as a transfer would make).
-Order is preserved, source exceptions re-raise at the consumer, and the
-queue bounds host memory to ``depth`` batches.
+With ``sharding`` (``parallel.batch_sharding(mesh, ndim)``) only this
+rank's rows are copied, and each leaf lands as a ``DTensor`` sharded over
+the mesh's ``data`` axis.  A custom ``transfer`` owns placement instead,
+and ``transfer=None`` disables it.  Order is preserved, source exceptions
+re-raise at the consumer, and the queue bounds host memory to ``depth``
+batches.
 
 Typical use::
 
@@ -28,9 +32,8 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Any, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
-import numpy as np
 import torch
 
 from alink_tpu_torch.utils.tree import map_leaves
@@ -45,19 +48,53 @@ class DevicePrefetcher:
         depth: batches to stay ahead (>= 1).  2 double-buffers: one batch
             computing, one in flight.
         device: where batches land (default ``"cuda"``, the current CUDA
-            device; a missing card raises, there is no CPU fallback).
-            ``"cpu"`` gives CPU tensors.
+            device, or the device type of ``sharding``'s mesh; a missing
+            card raises, there is no CPU fallback).  ``"cpu"`` gives CPU
+            tensors.
+        sharding: an optional ``parallel.mesh.Sharding``
+            (``batch_sharding(mesh, ndim)``): each array leaf lands as a
+            ``DTensor``, this rank's rows on its device.
+        transfer: a function that places a batch in place of the default
+            placement, or None for no placement (the thread still
+            overlaps the source's own work).  Mutually exclusive with
+            ``sharding``: a custom transfer owns placement entirely.
     """
 
-    # Sentinel (a private instance so user values can never collide).
+    # Sentinels (private instances so user values can never collide).
     _DONE = object()
+    _PLACE = object()
 
     def __init__(self, iterable: Iterable[Any], depth: int = 2,
-                 device=None):
+                 device=None, sharding=None,
+                 transfer: Callable[[Any], Any] | None = _PLACE):
         if depth < 1:
             raise ValueError("depth must be >= 1")
-        self.device = torch.device("cuda" if device is None else device)
+        if sharding is not None and transfer is not self._PLACE:
+            # Honouring both is ambiguous (whose placement wins?); make the
+            # caller choose instead of silently dropping one.
+            raise ValueError("pass either sharding or a custom transfer,"
+                             " not both")
+        self._sharding = sharding
+        self._transfer = transfer
+        self.device = None
         self.copy_stream = None
+        if transfer is self._PLACE:
+            self._init_device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._done = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._worker, args=(iter(iterable),), daemon=True)
+        self._thread.start()
+
+    def _init_device(self, device) -> None:
+        mesh_type = (self._sharding.mesh.device_type
+                     if self._sharding is not None else None)
+        self.device = torch.device(device if device is not None
+                                   else mesh_type or "cuda")
+        if mesh_type is not None and self.device.type != mesh_type:
+            raise ValueError(f"device {self.device} is not on the "
+                             f"sharding's {mesh_type} mesh")
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("DevicePrefetcher: no CUDA device; pass "
@@ -68,27 +105,33 @@ class DevicePrefetcher:
             self.copy_stream = torch.cuda.Stream(self.device)
         elif self.device.type != "cpu":
             raise ValueError(f"no prefetch to {self.device}")
-        self._q: queue.Queue = queue.Queue(maxsize=depth)
-        self._done = False
-        self._stop = threading.Event()
-        self._thread = threading.Thread(
-            target=self._worker, args=(iter(iterable),), daemon=True)
-        self._thread.start()
+
+    def _leaf(self, x, copy: Callable[[torch.Tensor], torch.Tensor]):
+        """One array leaf placed by ``copy``: whole, or this rank's rows
+        as a ``DTensor`` under the sharding."""
+        if self._sharding is None:
+            return copy(torch.as_tensor(x))
+        from alink_tpu_torch.parallel.mesh import from_local, local_rows
+
+        local, shape = local_rows(x, self._sharding)
+        return from_local(copy(local), self._sharding, shape)
 
     def _place(self, item):
-        """(batch on the device, the copy's event or None)."""
+        """(batch placed, the copy's event or None)."""
+        if self._transfer is None:
+            return item, None
+        if self._transfer is not self._PLACE:
+            return self._transfer(item), None
         if self.copy_stream is None:
-            return map_leaves(lambda x: torch.tensor(np.asarray(x))
-                               if isinstance(x, np.ndarray)
-                               else x.detach().cpu().clone(), item), None
+            return map_leaves(lambda x: self._leaf(
+                x, lambda t: t.detach().cpu().clone()), item), None
 
-        def stage(x):
-            host = torch.as_tensor(x)
-            host = host if host.is_pinned() else host.pin_memory()
+        def stage(t):
+            host = t if t.is_pinned() else t.pin_memory()
             return host.to(self.device, non_blocking=True)
 
         with torch.cuda.stream(self.copy_stream):
-            out = map_leaves(stage, item)
+            out = map_leaves(lambda x: self._leaf(x, stage), item)
             event = torch.cuda.Event()
             event.record(self.copy_stream)
         return out, event
@@ -132,7 +175,7 @@ class DevicePrefetcher:
         if event is not None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(event)
-            map_leaves(lambda t: t.record_stream(consumer), out)
+            map_leaves(lambda t: _local(t).record_stream(consumer), out)
         return out
 
     def close(self) -> None:
@@ -173,6 +216,12 @@ class DevicePrefetcher:
         self.close()
 
 
-def prefetch_to_device(iterable, depth: int = 2, device=None):
-    """Functional spelling of ``DevicePrefetcher`` (flax idiom)."""
-    return DevicePrefetcher(iterable, depth=depth, device=device)
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local part, or the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def prefetch_to_device(iterable, depth: int = 2, device=None, **kwargs):
+    """Functional spelling of ``DevicePrefetcher`` (flax idiom); keywords
+    (``sharding``, ``transfer``) pass through."""
+    return DevicePrefetcher(iterable, depth=depth, device=device, **kwargs)

@@ -194,6 +194,10 @@ def run_alink(config: ALinkConfig, *, featurize=None,
 
 
 def main(argv=None) -> None:
+    # Multi-host bring-up (a no-op for one process, as in the JAX driver).
+    from alink_tpu_torch.parallel import initialize
+
+    initialize()
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     known, rest = pre.parse_known_args(argv)

@@ -76,13 +76,19 @@ def embed(module: SmallRes, images, device, batch: int = 1024
                       for i in range(0, x.shape[0], batch)])
 
 
-def smallres_score_fn(state: T.TrainState, batch: int = 1024):
+def smallres_score_fn(state: T.TrainState, low_res: int | None = None,
+                      probe_chunk: int = 32, *, batch: int = 1024):
     """``(probes, gallery) -> (N, G)`` P(genuine) for the top-1 tail.
 
     The tower is per image and deterministic in eval, so probes and gallery
     are embedded once and the grid is the head's all-pairs scorer over the
     embeddings (kernel K1 on CUDA): the same function as the JAX driver's,
-    which runs the whole model on every repeated (probe, gallery) pair."""
+    which runs the whole model on every repeated (probe, gallery) pair.
+    ``low_res`` and ``probe_chunk`` take the JAX driver's positions and are
+    ignored: the images arrive at the student's resolution, and no pair
+    grid of images is built to chunk.  ``batch`` images are embedded at a
+    time."""
+    del low_res, probe_chunk
 
     def score(probes, gallery) -> torch.Tensor:
         m = state.module

@@ -64,13 +64,19 @@ class _IRUnit(nn.Module):
             for c in (cin, filters, filters) + ((filters,) if project else ()))
         self.prelu = nn.ModuleList([_PReLU(filters, dtype, device)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
+        """``reduce`` is applied to the second conv's output: the tensor-
+        parallel split (``parallel/tp.py``) passes its all-reduce over the
+        model axis."""
         dt = self.dtype
         y = self.bn[0](x)
         y = _conv(y, self.conv[0], dt, padding=1)
         y = self.prelu[0](self.bn[1](y))
         # Symmetric (1, 1) padding on the strided conv (MXNet/Caffe grid).
-        y = self.bn[2](_conv(y, self.conv[1], dt, self.stride, padding=1))
+        y = _conv(y, self.conv[1], dt, self.stride, padding=1)
+        if reduce is not None:
+            y = reduce(y)
+        y = self.bn[2](y)
         if len(self.conv) == 3:
             shortcut = self.bn[3](_conv(x, self.conv[2], dt, self.stride))
         else:
@@ -119,11 +125,21 @@ class ArcFaceResNet100(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) raw RGB -> (N, embedding_dim) f32."""
-        x = x.permute(0, 3, 1, 2)
-        x = self.prelu[0](self.bn[0](_conv(x, self.conv[0], self.dtype,
-                                           padding=1)))
+        x = self.stem(x)
         for unit in self.units:
             x = unit(x)
+        return self.head(x)
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) raw RGB -> the first unit's input (N, 64, H, W).
+        The stem, the units and the head are the one copy of the topology
+        that the tensor- and pipeline-parallel forwards share."""
+        x = x.permute(0, 3, 1, 2)
+        return self.prelu[0](self.bn[0](_conv(x, self.conv[0], self.dtype,
+                                              padding=1)))
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The last unit's output -> (N, embedding_dim) f32."""
         x = self.bn[1](x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
         x = F.linear(x, self.dense[0].weight, self.dense[0].bias)

@@ -13,7 +13,9 @@ are kept:
   [0, 255] images, the dtype kept;
 - ``poisson``     — Gaussian limit ``max(round(lam + sqrt(lam) z), 0) / vals``
   with ``lam = max(x * vals, 0)`` and ``vals = 2**ceil(log2(n_unique))``,
-  the unique count over the 256 uint8 levels of ``round(x)``;
+  the unique count over the 256 uint8 levels of ``round(x)``
+  (``assume_uint8=False``: over the sorted values); ``exact=True`` draws a
+  true Poisson instead;
 - ``speckle``     — ``x + x * z / 15``;
 - ``perlin``      — octaves (56, 32, 16) when size % 56 == 0 else (50, 30,
   15), one field per image on all channels, quintic fade;
@@ -87,24 +89,42 @@ def salt_pepper(g, images, s_vs_p: float = 0.5, amount: float = 0.004):
     return salt_pepper_from(images, *(coords(k) for k in counts))
 
 
-def poisson_from(images: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    img = _float(images)
+def _poisson_vals(img: torch.Tensor, assume_uint8: bool) -> torch.Tensor:
+    """``vals = 2**ceil(log2(n_unique))`` per image, broadcastable to
+    ``img``: the unique count over the 256 uint8 levels of ``round(x)``, or
+    with ``assume_uint8=False`` over the sorted values themselves."""
     n = img.shape[0]
-    levels = torch.round(img.reshape(n, -1).float())
-    hit = ((levels >= 0) & (levels <= 255)).float()
-    present = torch.zeros((n, 256), device=img.device)
-    present.scatter_add_(1, levels.clamp(0, 255).long(), hit)
-    n_unique = torch.clamp((present > 0).sum(dim=1), min=1).float()
-    vals = (2.0 ** torch.ceil(torch.log2(n_unique))).reshape(
-        (n,) + (1,) * (img.dim() - 1))
+    if assume_uint8:
+        levels = torch.round(img.reshape(n, -1).float())
+        hit = ((levels >= 0) & (levels <= 255)).float()
+        present = torch.zeros((n, 256), device=img.device)
+        present.scatter_add_(1, levels.clamp(0, 255).long(), hit)
+        n_unique = torch.clamp((present > 0).sum(dim=1), min=1)
+    else:
+        flat = torch.sort(img.reshape(n, -1), dim=1).values
+        n_unique = 1 + (flat[:, 1:] != flat[:, :-1]).sum(dim=1)
+    vals = 2.0 ** torch.ceil(torch.log2(n_unique.float()))
+    return vals.reshape((n,) + (1,) * (img.dim() - 1))
+
+
+def poisson_from(images: torch.Tensor, z: torch.Tensor,
+                 assume_uint8: bool = True) -> torch.Tensor:
+    img = _float(images)
+    vals = _poisson_vals(img, assume_uint8)
     lam = torch.clamp(img * vals, min=0.0)
     noisy = torch.clamp(torch.round(lam + torch.sqrt(lam) * z), min=0.0)
     return noisy.to(img.dtype) / vals
 
 
-def poisson(g, images):
-    """Poisson shot noise (Gaussian limit) with data-dependent scaling."""
-    return poisson_from(images, _normal(g, images).float())
+def poisson(g, images, assume_uint8: bool = True, exact: bool = False):
+    """Poisson shot noise with data-dependent scaling: the Gaussian limit,
+    or with ``exact`` a true Poisson draw (``torch.poisson``)."""
+    if not exact:
+        return poisson_from(images, _normal(g, images).float(), assume_uint8)
+    img = _float(images)
+    vals = _poisson_vals(img, assume_uint8)
+    lam = torch.clamp(img * vals, min=0.0).float()
+    return torch.poisson(lam, generator=g).to(img.dtype) / vals
 
 
 def speckle_from(images, z):

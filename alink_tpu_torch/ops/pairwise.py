@@ -15,8 +15,9 @@ rounded to bf16 and products accumulate in f32, as in the JAX package.
   two-hidden-layer head on CUDA tensors (any H1 and D; an H2 over 256 runs
   as chunks of 256 columns, ``head_chunks``), the plain version for other
   heads and on the CPU.
-
-The mesh-sharded grid (``score_matrix_sharded``) is not ported yet.
+- ``score_matrix_sharded``   — the grid over a (data, model) mesh: rows
+  over ``data``, columns over ``model``, each rank's tile through
+  ``score_matrix``.
 """
 
 from __future__ import annotations
@@ -365,6 +366,41 @@ def score_matrix(head, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     if rows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no scorer for device {rows.device}")
     return score_matrix_reference(head, rows, cols)
+
+
+# The JAX package's per-backend block sizes: TPU tiling knobs, accepted
+# and ignored here (the kernel's launch plan decides its own tiles).
+_TPU_BLOCK_KNOBS = frozenset({"row_block", "col_block", "d_chunk",
+                              "interpret", "on_tpu"})
+
+
+def score_matrix_sharded(mesh, head, rows: torch.Tensor, cols: torch.Tensor,
+                         **block_kwargs) -> torch.Tensor:
+    """The all-pairs grid over a (data, model) mesh.
+
+    Rows are split over ``data`` and columns over ``model`` (each padded
+    with zeros to a multiple of its axis); every rank scores its own tile
+    with ``score_matrix`` (kernel K1 on CUDA tensors), with no
+    communication during compute, and the tiles are gathered over both
+    axes.  Every rank passes the same features and gets the full (N, M)
+    grid.  The JAX package's block sizes (``row_block``, ``col_block``,
+    ...) are accepted and ignored.
+    """
+    from alink_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                               axis_size, block, coordinate,
+                                               gather_axis, pad_axis0)
+
+    unknown = set(block_kwargs) - _TPU_BLOCK_KNOBS
+    if unknown:
+        raise TypeError(f"unexpected arguments {sorted(unknown)}")
+    nd, nm = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+    d, m = coordinate(mesh)
+    n, mc = rows.shape[0], cols.shape[0]
+    tile = score_matrix(head, block(pad_axis0(rows, nd), nd, d),
+                        block(pad_axis0(cols, nm), nm, m))
+    grid = gather_axis(gather_axis(tile, mesh, MODEL_AXIS, dim=1), mesh,
+                       DATA_AXIS)
+    return grid[:n, :mc]
 
 
 def _topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -5,11 +5,10 @@
 - ``Verifier.enroll``       — embed faces into a gallery that stays on the
   device as one tensor;
 - ``Verifier.identify``     — top-k gallery matches per probe (fused scorer);
-- ``Verifier.score_matrix`` — all-pairs scores over one face set;
+- ``Verifier.score_matrix`` — all-pairs scores over one face set, over a
+  (data, model) mesh when one is given;
 - ``MicroBatcher``          — concurrent single-image requests coalesce
   into one padded batch call.
-
-The mesh-sharded score grid of the JAX package comes later.
 """
 
 from __future__ import annotations
@@ -136,11 +135,15 @@ class Verifier:
         featurize: batched ``(N, H, W, C) -> (N, D)`` embedding function,
             typically ``FaceModel(...).process``.
         head: the siamese verification head (``SiameseHead`` module).
+        mesh: an optional (data, model) mesh (``parallel.create_mesh``);
+            ``score_matrix`` then runs the sharded grid
+            (``pairwise.score_matrix_sharded``).
     """
 
-    def __init__(self, featurize: Callable, head):
+    def __init__(self, featurize: Callable, head, mesh=None):
         self.featurize = featurize
         self.head = head
+        self.mesh = mesh
         self._gallery_feats: torch.Tensor | None = None
         self._gallery_labels: list = []
         # enroll() is read-concat-write and identify() reads features and
@@ -192,7 +195,11 @@ class Verifier:
 
     def score_matrix(self, images_or_feats, *, precomputed: bool = False
                      ) -> torch.Tensor:
-        """All-pairs P(genuine) over one face set."""
+        """All-pairs P(genuine) over one face set; the mesh-sharded grid
+        when the verifier has a mesh."""
         feats = (torch.as_tensor(images_or_feats) if precomputed
                  else self.embed(images_or_feats))
+        if self.mesh is not None:
+            return pairwise.score_matrix_sharded(self.mesh, self.head, feats,
+                                                 feats)
         return pairwise.score_matrix(self.head, feats, feats)

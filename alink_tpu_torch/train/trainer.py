@@ -268,11 +268,15 @@ def custom_train(state: TrainState,
 
 
 @torch.no_grad()
-def test_accuracy(state: TrainState, feats, labels) -> float:
+def test_accuracy(state: TrainState, feats, labels,
+                  batch_size: int = 512) -> float:
     """All-pairs verification accuracy (``testAccuracy``): one score-matrix
-    pass (kernel K1 on CUDA) against the label outer product."""
+    pass (kernel K1 on CUDA) against the label outer product.
+    ``batch_size`` is the reference's chunking, kept for the JAX package's
+    signature and ignored: the grid is one pass."""
     from alink_tpu_torch.ops.pairwise import score_matrix
 
+    del batch_size
     dev = state.device
     feats, labels = _as(feats, dev).float(), _as(labels, dev)
     pred = score_matrix(state.module, feats, feats) > 0.5

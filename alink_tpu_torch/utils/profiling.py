@@ -41,6 +41,12 @@ class Timings:
             self.totals[name] += time.perf_counter() - start
             self.counts[name] += 1
 
+    def timed(self, name: str, fn, *args, **kwargs):
+        """Run ``fn(*args, **kwargs)`` and charge its wall time, its CUDA
+        work synchronised, to ``name``."""
+        with self.phase(name):
+            return fn(*args, **kwargs)
+
     def report(self) -> str:
         lines = []
         for name in sorted(self.totals, key=self.totals.get, reverse=True):

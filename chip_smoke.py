@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving and training paths, the A2 channel, the
 int8 conv, the DFW evaluation chain, the loop's resume, supervision and
 augmentation, the rest of detect and serving, the ArcFace driver, the
-Multi-PIE driver with the classical-AL baselines, and the identification
-classifiers with the weight tools once on one NVIDIA GPU.
+Multi-PIE driver with the classical-AL baselines, the identification
+classifiers with the weight tools, and the parallel layer once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -151,6 +152,22 @@ m. the side models and the identification classifiers at full width:
    file through ``tools.convert_mxnet`` into ``ArcFaceResNet100``
    (strict), 64 chips embedded to finite unit-norm (1e-3) vectors.
 
+n. the parallel layer at full width in a world-1 NCCL group (one card:
+   NCCL refuses two ranks on one GPU): ``create_mesh()`` is 1 x 1;
+   ``sharded_featurize`` over VGGFace-ResNet50 (3, 4, 6, 3) 224^2 bf16 on
+   128 faces (K3 counted: 13), ``sharded_face_pipeline`` over r100
+   ``typical`` on 64 photos of 160^2 (K2 counted),
+   ``sharded_committee_probs`` (5 heads (512, 64), 1,024 pairs of 2,048-d
+   features), ``score_matrix_sharded`` at 1000 x 1000 x 512 and
+   ``Verifier(mesh=).score_matrix`` (K1 counted: 2), ``arcface_tp_apply``
+   at model 1 (r100 bf16, 64 chips), each against its unsharded call on
+   the same tensors (max |diff| 0; the committee 1e-6) and timed beside
+   it (median of 7 synchronised windows, the two taking turns);
+   ``DevicePrefetcher(sharding=batch_sharding(mesh, 4))`` landing its
+   batches on cuda:0; then, on the host CPU, a spawned 2-rank gloo world
+   running TP and PP (2 microbatches) of the full-depth r100 in f32 at
+   batch 4, held to the local f32 forward within 5e-5.
+
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
 from the shapes, the card's peaks and memory rate); the last line is
@@ -161,6 +178,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -2914,6 +2932,257 @@ def phase_classify(dev, smi: str) -> dict:
     return counts
 
 
+# Phase (n): the parallel layer on the card, in a world-1 NCCL group (one
+# H100: NCCL refuses two ranks on one GPU), every sharded path against its
+# unsharded call on the same tensors, then TP and PP across a 2-rank gloo
+# world on the host CPU at full r100 depth (f32).
+N_FEAT_FACES = 128       # VGGFace-ResNet50 224^2 bf16 (phase (f)'s batch)
+N_PHOTOS = 64            # r100 typical, 160^2 photos (phase (c)'s batch)
+N_HEADS = 5              # committee members, heads (512, 64) on 2,048-d
+N_PAIRS = 1024
+N_GRID = 1000            # 1000 x 1000 pairs of 512-d features (phase (b))
+N_TP_CHIPS = 64          # r100 bf16 112^2 chips
+N_WINDOWS = 7
+N_CPU_RANKS = 2
+N_CPU_BATCH = 4
+N_CPU_LIMIT = 5e-5       # tests/test_parallel.py's full-depth bound (f32)
+N_COMMITTEE_LIMIT = 1e-6
+
+
+def _alternating_ms(fns: dict, iters: int) -> dict:
+    """Median ms per call of each function over ``N_WINDOWS`` windows of
+    ``iters`` synchronised calls, the functions taking turns (ABBA)."""
+    import statistics
+
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    names = list(fns)
+    for w in range(N_WINDOWS):
+        for k in (names if w % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3 / iters)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _cpu_world(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of (n)'s host-CPU world: TP and PP of the full-depth r100
+    in f32 on a (1, world) mesh; rank 0 also runs the local forward and
+    writes the comparison to ``out``."""
+    import json as _json
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        from alink_tpu_torch import parallel as P
+        from alink_tpu_torch.models import ArcFaceResNet100
+
+        mesh = P.create_mesh((1, world), device_type="cpu")
+        model = ArcFaceResNet100(dtype=torch.float32,
+                                 generator=torch.Generator().manual_seed(SEED))
+        x = torch.rand((N_CPU_BATCH, 112, 112, 3),
+                       generator=torch.Generator().manual_seed(SEED + 1)) * 255
+        t0 = time.perf_counter()
+        tp = P.arcface_tp_apply(mesh, model, x)
+        t_tp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pp = P.arcface_pp_apply(mesh, model, x, microbatches=2)
+        t_pp = time.perf_counter() - t0
+        if rank == 0:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                local = model(x)
+            t_local = time.perf_counter() - t0
+            with open(out, "w") as f:
+                _json.dump({"tp": maxdiff(tp, local), "pp": maxdiff(pp, local),
+                            "finite": bool(torch.isfinite(tp).all()
+                                           and torch.isfinite(pp).all()),
+                            "shape": list(tp.shape), "tp_s": t_tp,
+                            "pp_s": t_pp, "local_s": t_local,
+                            "threads": torch.get_num_threads()}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(dev, smi: str) -> dict:
+    """(n): the parallel layer at full width in a world-1 NCCL group;
+    returns the sharded paths' launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from alink_tpu_torch import parallel as P
+    from alink_tpu_torch.active import Committee
+    from alink_tpu_torch.data.prefetch import DevicePrefetcher
+    from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
+                                        init_cascade_params)
+    from alink_tpu_torch.drivers.common import make_resnet50_featurizer
+    from alink_tpu_torch.models import ArcFaceResNet100, SiameseHead
+    from alink_tpu_torch.ops import image, pairwise, resblock
+    from alink_tpu_torch.serving import Verifier
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    gd = torch.Generator(dev).manual_seed(SEED)
+    mesh = P.create_mesh()
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+          and "nccl" in str(dist.get_backend()),
+          f"world-1 mesh: {mesh} on {dist.get_backend()}")
+    print(f"parallel: world {dist.get_world_size()} ({dist.get_backend()}), "
+          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+          f"{mesh.device_type}:{torch.cuda.current_device()}", flush=True)
+
+    featurize, _ = make_resnet50_featurizer(g, device=dev)
+    faces = torch.rand((N_FEAT_FACES, F_IMAGE, F_IMAGE, 3), generator=gd,
+                       device=dev) * 255
+    fm = FaceModel(ArcFaceResNet100(generator=g, device=dev),
+                   init_cascade_params(g, device=dev),
+                   CascadeConfig.typical(thresholds=(0.0, 0.0, 0.0)))
+    photos = torch.rand((N_PHOTOS, IMG, IMG, 3), generator=gd,
+                        device=dev) * 255
+    heads = [SiameseHead(2048, (512, 64), generator=g, device=dev)
+             for _ in range(N_HEADS)]
+    com = Committee.from_param_list(heads[0], [h.state_dict() for h in heads])
+    left = torch.randn((N_PAIRS, 2048), generator=gd, device=dev)
+    right = torch.randn((N_PAIRS, 2048), generator=gd, device=dev)
+    grid_head = SiameseHead(512, (512, 64), generator=g, device=dev)
+    rows = torch.randn((N_GRID, 512), generator=gd, device=dev)
+    cols = torch.randn((N_GRID, 512), generator=gd, device=dev)
+    verifier = Verifier(fm.process, grid_head, mesh=mesh)
+    r100 = fm.embedder
+    chips = torch.rand((N_TP_CHIPS, 112, 112, 3), generator=gd,
+                       device=dev) * 255
+
+    k1, k2, k3 = (pairwise.score_matrix_kernel,
+                  image.affine_warp_batch_kernel,
+                  resblock.bottleneck_s1_kernel)
+    k1.launches = k2.launches = k3.launches = 0
+    with torch.no_grad():
+        f_sh = P.sharded_featurize(mesh, featurize, faces)
+    p_sh = P.sharded_face_pipeline(mesh, fm, photos)
+    c_sh = P.sharded_committee_probs(mesh, com.head, com.params, left, right)
+    g_sh = pairwise.score_matrix_sharded(mesh, grid_head, rows, cols)
+    v_sh = verifier.score_matrix(rows, precomputed=True)
+    tp_sh = P.arcface_tp_apply(mesh, r100, chips)
+    torch.cuda.synchronize()
+    counts = {"bottleneck": k3.launches, "affine_warp": k2.launches,
+              "pair_score": k1.launches}
+    print(f"parallel: sharded featurize / face pipeline / committee / grid / "
+          f"Verifier grid / TP; launches {counts}", flush=True)
+    check(counts["bottleneck"] == 13,
+          f"sharded featurize: K3 launched {counts['bottleneck']} times, "
+          "13 expected (one forward)")
+    check(counts["affine_warp"] >= 1, "sharded face pipeline: K2 not launched")
+    check(counts["pair_score"] == 2,
+          f"sharded grids: K1 launched {counts['pair_score']} times, 2 "
+          "expected")
+
+    with torch.no_grad():
+        f_lo = featurize(faces)
+        tp_lo = r100(chips)
+    diffs = {"featurize": maxdiff(f_sh, f_lo),
+             "face_pipeline": maxdiff(p_sh, fm.pipeline(photos)),
+             "committee": maxdiff(c_sh, com.predict(left, right)),
+             "grid": maxdiff(g_sh, pairwise.score_matrix(grid_head, rows,
+                                                         cols)),
+             "verifier_grid": maxdiff(v_sh, pairwise.score_matrix(
+                 grid_head, rows, rows)),
+             "tp_model1": maxdiff(tp_sh, tp_lo)}
+    print("parallel: sharded vs unsharded max|diff| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in diffs.items())
+        + f" (limits 0, committee {N_COMMITTEE_LIMIT})", flush=True)
+    for name, d in diffs.items():
+        limit = N_COMMITTEE_LIMIT if name == "committee" else 0.0
+        check(d <= limit, f"sharded {name}: max|diff| {d} > {limit}")
+    shapes = {"featurize": (f_sh, (N_FEAT_FACES, 2048)),
+              "face_pipeline": (p_sh, (N_PHOTOS, 512)),
+              "committee": (c_sh, (N_PAIRS, 2)),
+              "grid": (g_sh, (N_GRID, N_GRID)),
+              "tp_model1": (tp_sh, (N_TP_CHIPS, 512))}
+    for name, (t, shape) in shapes.items():
+        check(tuple(t.shape) == shape and bool(torch.isfinite(t).all()),
+              f"sharded {name}: shape {tuple(t.shape)} or non-finite")
+
+    host = [np.random.default_rng(i).uniform(0, 255, (BATCH, 112, 112, 3))
+            .astype(np.float32) for i in range(4)]
+    with DevicePrefetcher(iter(host), sharding=P.batch_sharding(mesh, 4)) \
+            as it:
+        landed = list(it)
+    check(len(landed) == 4 and all(
+        b.to_local().device == torch.device("cuda", 0)
+        and tuple(b.shape) == h.shape
+        and np.array_equal(b.to_local().cpu().numpy(), h)
+        for b, h in zip(landed, host)),
+        "prefetcher: sharded batches did not land whole on cuda:0")
+    print(f"parallel: DevicePrefetcher(sharding=batch_sharding(mesh, 4)) "
+          f"landed {len(landed)} batches of {host[0].shape} on "
+          f"{landed[0].to_local().device} as {type(landed[0]).__name__} "
+          f"{landed[0].placements}", flush=True)
+
+    def timed(name, sharded, local, iters):
+        ms = _alternating_ms({"unsharded": local, "sharded": sharded}, iters)
+        print(f"parallel: {name} unsharded {ms['unsharded']:.4f} ms, sharded "
+              f"{ms['sharded']:.4f} ms ({ms['sharded'] / ms['unsharded']:.4f}"
+              f"x; median of {N_WINDOWS} windows of {iters} synchronised "
+              f"calls) on {smi}", flush=True)
+
+    with torch.no_grad():
+        timed(f"featurize {N_FEAT_FACES} x {F_IMAGE}^2",
+              lambda: P.sharded_featurize(mesh, featurize, faces),
+              lambda: featurize(faces), 3)
+        timed(f"face pipeline {N_PHOTOS} x {IMG}^2",
+              lambda: P.sharded_face_pipeline(mesh, fm, photos),
+              lambda: fm.pipeline(photos), 3)
+        timed(f"committee {N_HEADS} heads x {N_PAIRS} pairs",
+              lambda: P.sharded_committee_probs(mesh, com.head, com.params,
+                                                left, right),
+              lambda: com.predict(left, right), 10)
+        timed(f"grid {N_GRID}x{N_GRID}x512",
+              lambda: pairwise.score_matrix_sharded(mesh, grid_head, rows,
+                                                    cols),
+              lambda: pairwise.score_matrix(grid_head, rows, cols), 10)
+        timed(f"TP r100 model 1, {N_TP_CHIPS} chips",
+              lambda: P.arcface_tp_apply(mesh, r100, chips),
+              lambda: r100(chips), 3)
+    del fm, r100, featurize, heads, com
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="parallel_", dir=work) as tmp:
+        out = os.path.join(tmp, "cpu_world.json")
+        t0 = time.perf_counter()
+        mp.start_processes(_cpu_world, args=(N_CPU_RANKS,
+                                             os.path.join(tmp, "rdzv"), out),
+                           nprocs=N_CPU_RANKS, start_method="spawn")
+        t_world = time.perf_counter() - t0
+        with open(out) as f:
+            res = json.load(f)
+    print(f"parallel: host CPU ({os.cpu_count()} cores, {res['threads']} "
+          f"threads a rank), {N_CPU_RANKS}-rank gloo world, r100 (3, 13, 30, "
+          f"3) f32, batch {N_CPU_BATCH} at 112^2: TP max|diff| "
+          f"{res['tp']:.3e}, PP (2 microbatches) max|diff| {res['pp']:.3e} "
+          f"against the local f32 forward (limit {N_CPU_LIMIT}); TP "
+          f"{res['tp_s']:.2f} s, PP {res['pp_s']:.2f} s, local "
+          f"{res['local_s']:.2f} s, world {t_world:.1f} s (host CPU, not "
+          f"the card)", flush=True)
+    check(res["finite"] and res["shape"] == [N_CPU_BATCH, 512]
+          and max(res["tp"], res["pp"]) <= N_CPU_LIMIT,
+          f"host-CPU TP/PP: {res}")
+    print(f"parallel: phase (n) {time.perf_counter() - t_phase:.1f} s on "
+          f"{smi}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2983,23 +3252,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("l")
     classify_counts = phase_classify(dev, smi)
+    torch.cuda.empty_cache()
     stamp("m")
+    par_counts = phase_parallel(dev, smi)
+    stamp("n")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
     # K2, training, the A2 channel, evaluation, the augmented loop,
     # run_alink_mtp, existing_al and ResNet50Classifier's fit for K3, its
-    # own op path for K4.
+    # own op path for K4; and (n)'s sharded paths for K1, K2 and K3.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
                             + eval_counts["bottleneck"]
                             + resume_counts["bottleneck"]
                             + mtp_counts["bottleneck"]
-                            + classify_counts["bottleneck"])
+                            + classify_counts["bottleneck"]
+                            + par_counts["bottleneck"])
     counts["pair_score"] += (eval_counts["pair_score"]
                              + rest_counts["pair_score"]
-                             + mtp_counts["pair_score"])
+                             + mtp_counts["pair_score"]
+                             + par_counts["pair_score"])
     counts["affine_warp"] += (resume_counts["affine_warp"]
-                              + rest_counts["affine_warp"])
+                              + rest_counts["affine_warp"]
+                              + par_counts["affine_warp"])
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),

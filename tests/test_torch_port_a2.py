@@ -630,7 +630,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"alink_tpu_torch.{m}" for m in (
         "models.genderage", "models.mtcnn", "detect.cascade",
         "detect.face_model", "drivers.alink_arc",
-        "tools.calibrate_budgets")} <= set(names)
+        "tools.calibrate_budgets", "parallel", "parallel.mesh",
+        "parallel.distributed", "parallel.ops", "parallel.tp",
+        "parallel.pp", "tools.dryrun_multichip")} <= set(names)
 
 
 def test_profile_alink_a2_breakdown_runs_on_cpu():

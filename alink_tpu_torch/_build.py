@@ -10,6 +10,10 @@ point returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
 non-zero status, because a refused launch never runs and a later
 synchronise would not report it.
 
+Host libraries (C++ with no CUDA, such as the JAX package's batched image
+decoder ``native/loader.cc``) are built the same way by ``build_host``, with
+``g++`` instead of ``nvcc``, into the same directory.
+
 Nothing here runs at import: ``nvcc`` is looked up and the library built
 only when a kernel is first launched on a CUDA tensor.
 """
@@ -23,6 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "alink_tpu_torch"
@@ -111,6 +116,42 @@ def build() -> Path:
         o.unlink(missing_ok=True)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(log))
+    os.replace(tmp, path)
+    return path
+
+
+def build_host(name: str, sources: Sequence[Path], flags: Sequence[str],
+               libs: Sequence[str] = ()) -> Path:
+    """Compile host C++ ``sources`` into one shared library with ``g++``,
+    unless a library for these sources and flags exists.
+
+    The file is ``build/alink_tpu_torch/lib<name>_<hash>.so``, the hash of
+    the flags, libraries and sources; it is written to a pid-tagged
+    temporary file and moved into place, so processes that build at once
+    never load a half-written library.  The compiler's output is kept in
+    ``<name>.build.log``; a failure raises ``RuntimeError`` with it.
+    """
+    cmd_tail = [*flags, "-shared"]
+    h = hashlib.sha256(" ".join([*cmd_tail, *libs]).encode())
+    for src in sources:
+        h.update(Path(src).name.encode())
+        h.update(Path(src).read_bytes())
+    path = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if path.exists():
+        return path
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"{name}: no C++ compiler (g++ not on PATH)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [cxx, *cmd_tail, "-o", str(tmp), *(str(s) for s in sources),
+           *libs]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    log = " ".join(cmd) + "\n" + res.stdout + res.stderr
+    (BUILD_DIR / f"{name}.build.log").write_text(log)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {name}:\n{log}")
     os.replace(tmp, path)
     return path
 

@@ -4,9 +4,14 @@
     images: (P, S_max, H, W, 3) float32   person-major, zero-padded
     counts: (P,)                int32     live images per person
 
-Decoding is PIL on a host thread pool: the portable path of the JAX
-package.  Its C++ loader (``native/``) and device prefetch are not ported
-yet; ``ALinkConfig.ingest_dct_scale`` (native only) is ignored.
+Decoding runs on the host: through the JAX package's C++ loader
+(``native/loader.cc``, bound by ``data.native_loader``) wherever it builds,
+else with PIL on a thread pool, as the JAX package chooses.  The C++ path
+resizes with cv2's ``INTER_LINEAR``, the reference's resize; PIL's
+``BILINEAR`` widens its filter when it downscales, so the two paths give
+different pixels at a downscaling ``image_res``.
+``ALinkConfig.ingest_dct_scale`` reaches the C++ decoder through
+``dct_scale``.
 """
 
 from __future__ import annotations
@@ -16,7 +21,10 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 from PIL import Image
+
+from alink_tpu_torch.data import native_loader
 
 
 @dataclasses.dataclass
@@ -71,12 +79,35 @@ def _decode_one(path: str, image_res: tuple[int, int]) -> np.ndarray:
         return np.zeros((h, w, 3), np.float32)
 
 
-def load_image_list(paths: Sequence[str], image_res: tuple[int, int], *,
-                    threads: int = 16) -> np.ndarray:
-    """Decode a flat list of paths into an (N, H, W, 3) float32 array."""
+def load_image_list(
+    paths: Sequence[str],
+    image_res: tuple[int, int],
+    *,
+    threads: int = 16,
+    backend: str = "auto",
+    dct_scale: bool = False,
+) -> np.ndarray:
+    """Decode a flat list of paths into an (N, H, W, 3) float32 array.
+
+    ``backend``: "native" (the C++ loader; raises when it cannot be built),
+    "pil" (PIL on a thread pool), or "auto" (native when it is available).
+    ``dct_scale`` (native only): libjpeg's scaled decode for large
+    sources, faster and approximate (``native_loader.decode_resize_batch``).
+    """
+    if backend not in ("auto", "native", "pil"):
+        raise ValueError(f"backend {backend!r}: 'auto', 'native' or 'pil'")
     if not paths:
         w, h = image_res
         return np.zeros((0, h, w, 3), np.float32)
+    if backend in ("auto", "native"):
+        if native_loader.available():
+            out, _ = native_loader.decode_resize_batch(
+                list(paths), image_res, threads=threads,
+                dct_scale=dct_scale)
+            return out
+        if backend == "native":
+            raise RuntimeError("native loader requested but unavailable: "
+                               f"{native_loader.build_error()}")
     with cf.ThreadPoolExecutor(max_workers=threads) as ex:
         imgs = list(ex.map(lambda p: _decode_one(p, image_res), paths))
     return np.stack(imgs)
@@ -88,22 +119,34 @@ def load_person_stacks(
     *,
     threads: int = 16,
     pad_to: int | None = None,
+    dct_scale: bool = False,
 ) -> PersonStacks:
     """Decode per-person path lists into a padded ``PersonStacks``.
 
     ``path_groups[p]`` is the image list of person ``p`` (one group of a
-    ``DFWPerson``).  Stacks pad to the longest group (at least 1), or to
-    ``pad_to`` (to align independently loaded groups).
+    ``DFWPerson``, or one Multi-PIE subject).  Stacks pad to the longest
+    group (at least 1), or to ``pad_to`` (to align independently loaded
+    groups).  ``dct_scale`` passes through to ``load_image_list``
+    (``ALinkConfig.ingest_dct_scale`` sets it for the drivers).
     """
     counts = np.asarray([len(g) for g in path_groups], np.int32)
     s_max = (pad_to if pad_to is not None
              else max(1, int(counts.max(initial=0))))
     w, h = image_res
     flat_paths = [p for g in path_groups for p in g]
-    flat = load_image_list(flat_paths, image_res, threads=threads)
+    flat = load_image_list(flat_paths, image_res, threads=threads,
+                           dct_scale=dct_scale)
     images = np.zeros((len(path_groups), s_max, h, w, 3), np.float32)
     offset = 0
     for p, c in enumerate(counts):
         images[p, :c] = flat[offset:offset + c]
         offset += c
     return PersonStacks(images, counts)
+
+
+def as_device(stacks: PersonStacks, device) -> PersonStacks:
+    """The stacks with their pixels moved once to ``device`` (a tensor;
+    the counts stay on the host), so later gathers do not upload them
+    again."""
+    return PersonStacks(torch.as_tensor(stacks.images, device=device),
+                        stacks.counts)

@@ -136,8 +136,9 @@ def run_alink_mtp(config: MTPConfig, *, featurize=None,
 
     # The subject pool (readMTP.readAllImages) at both resolutions.
     groups = list(scan_mtp(config.data_dir_prefix).values())
-    hi = load_person_stacks(groups, tuple(config.image_res))
-    lo = load_person_stacks(groups, lo_res)
+    dct = config.ingest_dct_scale
+    hi = load_person_stacks(groups, tuple(config.image_res), dct_scale=dct)
+    lo = load_person_stacks(groups, lo_res, dct_scale=dct)
     lo_pre, _ = split_disguise_data(lo, config.split_ratio)
     _, hi_post = split_disguise_data(hi, config.split_ratio)
 
@@ -191,7 +192,8 @@ def run_alink_mtp(config: MTPConfig, *, featurize=None,
     top1 = None
     if test_groups:
         top1 = gallery_top1(smallres_score_fn(state.m2_state),
-                            load_person_stacks(test_groups, lo_res))
+                            load_person_stacks(test_groups, lo_res,
+                                               dct_scale=dct))
         print(f">> Top-1 identification accuracy: {top1:.4f}")
     return state, top1
 

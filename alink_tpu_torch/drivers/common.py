@@ -76,7 +76,8 @@ def featurize_stacks(stacks: PersonStacks, featurize: Callable,
 
 
 def load_dfw(config, featurize: Callable, device=None) -> DFWData:
-    """Scan + decode + featurize the DFW training tree."""
+    """Scan + decode + featurize the DFW training tree
+    (``config.ingest_dct_scale`` reaches the native decoder)."""
     people = scan_dfw(config.data_dir_prefix, config.train_images_dir)
     if not people:
         raise FileNotFoundError(
@@ -84,9 +85,11 @@ def load_dfw(config, featurize: Callable, device=None) -> DFWData:
             f"images found under "
             f"{os.path.join(config.data_dir_prefix, config.train_images_dir)}")
     res = tuple(config.image_res)
-    plain_raw = load_person_stacks([p.plain for p in people], res)
-    dig_raw = load_person_stacks([p.disguised for p in people], res)
-    imp_raw = load_person_stacks([p.impostor for p in people], res)
+    dct = config.ingest_dct_scale
+    plain_raw, dig_raw, imp_raw = (
+        load_person_stacks([getattr(p, kind) for p in people], res,
+                           dct_scale=dct)
+        for kind in ("plain", "disguised", "impostor"))
     return DFWData(
         plain_feats=featurize_stacks(plain_raw, featurize, device),
         dig_feats=featurize_stacks(dig_raw, featurize, device),

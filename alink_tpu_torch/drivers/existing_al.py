@@ -47,8 +47,10 @@ def run_existing_al(config: ExistingALConfig, *, featurize=None,
     people = scan_dfw(config.data_dir_prefix, config.train_images_dir,
                       combine_normal_imp=True)
     res = tuple(config.image_res)
+    dct = config.ingest_dct_scale
     plain, imp = (common.featurize_stacks(
-        load_person_stacks([getattr(p, kind) for p in people], res),
+        load_person_stacks([getattr(p, kind) for p in people], res,
+                           dct_scale=dct),
         featurize, device) for kind in ("plain", "impostor"))
 
     # Pretrain-if-missing (existing_al.py:75-83).

@@ -45,7 +45,8 @@ def run_existing_al_mtp(config: MTPConfig, *,
     g = generator if generator is not None else \
         torch.Generator().manual_seed(config.seed)
     lo = load_person_stacks(list(scan_mtp(config.data_dir_prefix).values()),
-                            (config.low_res, config.low_res))
+                            (config.low_res, config.low_res),
+                            dct_scale=config.ingest_dct_scale)
     state = make_smallres_state(g, config, device)
     dropout = torch.Generator(device).manual_seed(config.seed)
     gen = smallres_pairs(balanced_pair_batches(config.seed, lo, None,

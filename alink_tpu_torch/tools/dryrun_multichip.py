@@ -1,8 +1,10 @@
-"""Run the sharded training and evaluation paths on an n-rank world: the
-port's counterpart of the JAX package's ``dryrun_multichip``
-(``__graft_entry__.py``).
+"""The port's counterpart of the JAX package's ``__graft_entry__.py``:
+``entry()``, the flagship forward (ArcFace r100 embeds both halves of a
+batch of pairs, ``SiameseHead`` scores them), and ``dryrun_multichip``,
+which runs the sharded training and evaluation paths on an n-rank world.
 
-On a (n/2, 2) mesh (n even and > 2), else (n, 1), at toy sizes:
+``dryrun_multichip`` runs, on a (n/2, 2) mesh (n even and > 2), else
+(n, 1), at toy sizes:
 
 - a SmallRes training step with the batch split over ``data``: each rank
   takes the loss of its rows (class weights from the whole batch), and
@@ -62,6 +64,37 @@ def _check(cond: bool, msg: str) -> None:
 
 def _maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def entry(device="cuda"):
+    """``(forward, example_args)`` for the flagship forward step: ArcFace
+    r100 (bf16, 512-d) embeds the left and the right 112^2 images, and
+    ``SiameseHead`` (512, 64) returns P(genuine) per pair, shape (N, 2).
+
+    ``forward(embedder_state, head_state, left, right)`` runs both modules
+    through ``torch.func.functional_call`` on the state dicts it is given;
+    ``example_args`` holds the seeded random states (seed 0) and two
+    batches of 8 zeros, on ``device`` (the card unless the caller passes
+    ``"cpu"``)."""
+    from torch.func import functional_call
+
+    from alink_tpu_torch.drivers.common import resolve_device
+    from alink_tpu_torch.models import ArcFaceResNet100, SiameseHead
+
+    dev = resolve_device(device, "entry")
+    g = torch.Generator().manual_seed(0)
+    embedder = ArcFaceResNet100(generator=g, device=dev)
+    head = SiameseHead(embedder.embedding_dim, generator=g, device=dev)
+    example = torch.zeros((8, 112, 112, 3), device=dev)
+
+    def forward(embedder_state, head_state, left, right):
+        """Embed both halves with the shared backbone, score the pairs."""
+        el = functional_call(embedder, embedder_state, (left,))
+        er = functional_call(embedder, embedder_state, (right,))
+        return functional_call(head, head_state, (el, er))
+
+    return forward, (embedder.state_dict(), head.state_dict(), example,
+                     example)
 
 
 def dp_train_step(mesh, state, left, right, labels,

@@ -3,8 +3,8 @@
 int8 conv, the DFW evaluation chain, the loop's resume, supervision and
 augmentation, the rest of detect and serving, the ArcFace driver, the
 Multi-PIE driver with the classical-AL baselines, the identification
-classifiers with the weight tools, and the parallel layer once on one
-NVIDIA GPU.
+classifiers with the weight tools, the parallel layer, and ingest with the
+flagship forward ``entry()`` once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -167,6 +167,23 @@ n. the parallel layer at full width in a world-1 NCCL group (one card:
    batches on cuda:0; then, on the host CPU, a spawned 2-rank gloo world
    running TP and PP (2 microbatches) of the full-depth r100 in f32 at
    batch 4, held to the local f32 forward within 5e-5.
+
+o. ingest: a DFW-protocol tree of 1,008 camera-size photos (112 people x
+   (3 + 4 + 2); 800x640 JPEGs at quality 90, smooth; written on a thread
+   pool, the write time printed apart) staged through
+   ``drivers.common.load_dfw`` at 224^2 with PIL, "auto" (the main path,
+   K3 counted in its featurize), the native loader exact and the native
+   loader with ``ingest_dct_scale``: staging s, decode + resize s and
+   images/s, the threads and ``os.cpu_count()``, featurize s and ingest's
+   share of staging.  Checks: "auto" equals "native" bit for bit;
+   ``dct_scale`` within mean 3 and max 40 levels of exact; the native
+   loader decodes every file; native against PIL printed (the resize
+   kernels differ).  Where the library cannot be built (no libjpeg /
+   libpng headers on the host), the compiler's reason is printed on its
+   own line, native staging is reported as not measured, and "auto" must
+   equal "pil".  Then the featurizer with K3 against its plain chain on 64
+   staged faces, and ``tools.dryrun_multichip.entry()``'s forward (ArcFace
+   r100 + ``SiameseHead``, batch 8 of 112^2 pairs) in ms.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -3183,6 +3200,253 @@ def phase_parallel(dev, smi: str) -> dict:
     return counts
 
 
+# Phase (o): ingest at full width.  A DFW-protocol tree of camera-size
+# photos (BENCHMARKS.md's "camera" source: 800x640 JPEGs at quality 90),
+# smooth as cameras give libjpeg (per-person low-resolution noise,
+# bilinearly upscaled, a per-image jitter and a little full-size noise), is
+# staged through ``drivers/common.load_dfw`` at 224^2 with each decoder.
+O_PEOPLE = 112           # x (3 + 4 + 2) = 1,008 images
+O_GROUPS = (3, 4, 2)     # plain, disguised, impostor images per person
+O_SOURCE = (800, 640)    # (w, h)
+O_QUALITY = 90
+O_DFW_TRAIN = 3386       # DFW's training images
+O_DCT_MEAN = 3.0         # dct_scale against exact, levels
+O_DCT_MAX = 40.0         # (tests/test_native_loader.py:102-103)
+O_ENTRY_BATCH = 8
+O_ENTRY_ITERS = 5
+
+
+def write_camera_tree(root: Path, people: int) -> float:
+    """Write the (o) tree under ``root`` on a thread pool; returns the
+    seconds the writing took."""
+    import concurrent.futures as cf
+
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    w, h = O_SOURCE
+    fields = [rng.integers(-2, 3, (h, w, 3), dtype=np.int16)
+              for _ in range(4)]
+    jobs = []
+    for p in range(people):
+        pdir = root / "Training_data" / f"person_{p:03d}"
+        pdir.mkdir(parents=True, exist_ok=True)
+        base, impostor = (rng.normal(128, 40, (20, 16, 3)) for _ in range(2))
+        for prefix, n, b, jitter in (("img_", O_GROUPS[0], base, 6.0),
+                                     ("img_h_", O_GROUPS[1], base, 20.0),
+                                     ("img_I_", O_GROUPS[2], impostor, 6.0)):
+            for i in range(n):
+                low = b + rng.normal(0, jitter, b.shape)
+                jobs.append((pdir / f"{prefix}{i}.jpg", low,
+                             int(rng.integers(len(fields)))))
+
+    def write(job) -> None:
+        path, low, k = job
+        up = np.asarray(Image.fromarray(
+            low.clip(0, 255).astype(np.uint8)).resize((w, h),
+                                                      Image.BILINEAR))
+        Image.fromarray((up + fields[k]).clip(0, 255).astype(np.uint8)).save(
+            path, quality=O_QUALITY)
+
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        list(ex.map(write, jobs))
+    return time.perf_counter() - t0
+
+
+def phase_ingest(dev, smi: str, people: int = O_PEOPLE) -> dict:
+    """(o): the (o) tree through ``load_dfw`` with PIL, the native loader
+    exact and the native loader with ``ingest_dct_scale``, each timed with
+    its ingest share; the featurize on the card with K3 counted; then
+    ``entry()``'s forward.  Returns K3's launches in the staging run."""
+    import shutil
+    import tempfile
+
+    from alink_tpu_torch.config import ALinkConfig
+    from alink_tpu_torch.data import (load_person_stacks, native_loader,
+                                      scan_dfw)
+    from alink_tpu_torch.drivers import common
+    from alink_tpu_torch.models import preprocess
+    from alink_tpu_torch.ops import resblock
+    from alink_tpu_torch.tools.dryrun_multichip import entry
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ingest_", dir=work))
+    n_images = people * sum(O_GROUPS)
+    try:
+        t_write = write_camera_tree(root, people)
+        print(f"ingest: wrote {n_images} JPEGs of {O_SOURCE[0]}x"
+              f"{O_SOURCE[1]} "
+              f"(quality {O_QUALITY}) in {t_write:.3f} s on "
+              f"{os.cpu_count()} threads (not staging time)", flush=True)
+        print(f"ingest cut: {people} people x {O_GROUPS} = {n_images} "
+              f"images (DFW trains on {O_DFW_TRAIN})", flush=True)
+        featurize, model = common.make_resnet50_featurizer(
+            torch.Generator().manual_seed(SEED), device=dev)
+        feat_s = [0.0]
+
+        def timed_featurize(x):
+            sync()
+            t0 = time.perf_counter()
+            out = featurize(x)
+            sync()
+            feat_s[0] += time.perf_counter() - t0
+            return out
+
+        featurize(torch.zeros((2, F_IMAGE, F_IMAGE, 3), device=dev))  # warm
+        cfg = ALinkConfig(data_dir_prefix=str(root),
+                          image_res=(F_IMAGE, F_IMAGE))
+        k3 = resblock.bottleneck_s1_kernel
+        threads = 16          # load_person_stacks' default
+
+        def stage(name, dct=False, pil=False):
+            """``load_dfw`` timed; ``pil`` switches the native loader off
+            for the run (``load_image_list``'s "auto" then takes PIL)."""
+            feat_s[0] = 0.0
+            k3.launches = 0
+            available = native_loader.available
+            if pil:
+                native_loader.available = lambda: False
+            try:
+                sync()
+                t0 = time.perf_counter()
+                data = common.load_dfw(
+                    dataclasses.replace(cfg, ingest_dct_scale=dct),
+                    timed_featurize, dev)
+                sync()
+                wall = time.perf_counter() - t0
+            finally:
+                native_loader.available = available
+            ingest = wall - feat_s[0]
+            print(f"ingest: {name}: staging {wall:.3f} s for {n_images} "
+                  f"images at {F_IMAGE}x{F_IMAGE}: decode + resize "
+                  f"{ingest:.3f} s ({n_images / ingest:.1f} images/s; "
+                  f"threads {threads}, os.cpu_count() {os.cpu_count()}), "
+                  f"featurize {feat_s[0]:.3f} s "
+                  f"(K3 launches {k3.launches}); ingest {ingest / wall:.1%} "
+                  f"of staging", flush=True)
+            return data, k3.launches
+
+        pil, _ = stage("pil", pil=True)
+        # The main path: load_dfw as run_alink calls it (the decoder
+        # "auto": native exact wherever the library builds).
+        auto, launches = stage("auto")
+        if native_loader.available():
+            print(f"ingest: native loader built "
+                  f"({native_loader.get_lib()._name})", flush=True)
+            dct, _ = stage("native dct_scale", dct=True)
+            # "auto" against the native decoder called on the same paths.
+            res = (F_IMAGE, F_IMAGE)
+            persons = scan_dfw(str(root), "Training_data")
+            failures = 0
+            for kind, st in (("plain", auto.plain_raw),
+                             ("disguised", auto.dig_raw),
+                             ("impostor", None)):
+                groups = [getattr(q, kind) for q in persons]
+                if st is None:
+                    st = load_person_stacks(groups, res)
+                want, n_bad = native_loader.decode_resize_batch(
+                    [q for grp in groups for q in grp], res)
+                failures += n_bad
+                check(np.array_equal(st.images[st.mask()], want),
+                      f"ingest: auto != native ({kind})")
+            print(f"ingest: auto equals native bit for bit (plain, "
+                  f"disguised, impostors); native decode failures "
+                  f"{failures} of {n_images}", flush=True)
+            check(failures == 0, f"ingest: {failures} files not decoded")
+            exact = auto.plain_raw
+            d = np.abs(dct.plain_raw.images - exact.images)[exact.mask()]
+            print(f"ingest: dct_scale vs exact: mean |diff| {d.mean():.4f}, "
+                  f"max {d.max():.4f} levels (limits {O_DCT_MEAN}, "
+                  f"{O_DCT_MAX})", flush=True)
+            check(d.mean() < O_DCT_MEAN and d.max() < O_DCT_MAX,
+                  f"ingest: dct_scale off by mean {d.mean()}, max {d.max()}")
+            check(d.max() > 0, "ingest: the scaled decode did not engage")
+            d = np.abs(pil.plain_raw.images - exact.images)[exact.mask()]
+            print(f"ingest: native vs PIL (resize kernels differ, no limit): "
+                  f"mean |diff| {d.mean():.4f}, max {d.max():.4f} levels",
+                  flush=True)
+        else:
+            reason = native_loader.build_error() or "unknown"
+            first = next((ln for ln in reason.splitlines()
+                          if "error" in ln), reason.splitlines()[-1])
+            print(f"ingest: native loader unavailable: {first.strip()}",
+                  flush=True)
+            print("ingest: native and dct_scale staging not measured on "
+                  "this host; auto decoded with PIL", flush=True)
+            for name in ("plain_raw", "dig_raw"):
+                check(np.array_equal(getattr(auto, name).images,
+                                     getattr(pil, name).images),
+                      f"ingest: auto != pil ({name})")
+        # Every file decoded: no zero-filled slot among the live images.
+        for name, per in (("plain_raw", O_GROUPS[0]),
+                          ("dig_raw", O_GROUPS[1])):
+            st = getattr(auto, name)
+            live = st.images[st.mask()]
+            check(live.shape[0] == people * per
+                  and bool((live.reshape(len(live), -1).std(1) > 1).all()),
+                  f"ingest: an image of {name} did not decode")
+        feats = auto.plain_feats.images[auto.plain_feats.mask()]
+        check(feats.shape == (people * O_GROUPS[0], 2048)
+              and np.isfinite(feats).all(), "ingest: bad features")
+        if dev.type == "cuda":
+            check(launches > 0, "kernel bottleneck was not launched by "
+                  "load_dfw's featurize")
+        faces = auto.plain_raw.images[auto.plain_raw.mask()][:64]
+        xp = preprocess.vggface(torch.as_tensor(faces, device=dev), version=2)
+        with torch.no_grad():
+            got = model(xp)
+            want = model(xp, chain=resblock.bottleneck_chain_reference)
+        rel = maxdiff(got, want) / float(want.abs().max())
+        print(f"ingest: featurizer K3 vs plain chain on {len(xp)} staged "
+              f"faces: relative max|diff| {rel:.3e} (limit {F_FEAT_LIMIT})",
+              flush=True)
+        check(rel < F_FEAT_LIMIT, f"ingest: featurizer relative {rel}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # entry(): the flagship forward at batch 8, through functional_call as
+    # entry() gives it, beside the same modules called directly (the
+    # difference is functional_call's parameter swap, on the host).
+    from alink_tpu_torch.models import ArcFaceResNet100, SiameseHead
+
+    forward, (estate, hstate, example, _) = entry(device=dev)
+    embedder = ArcFaceResNet100(device=dev)
+    embedder.load_state_dict(estate)
+    head = SiameseHead(embedder.embedding_dim, device=dev)
+    head.load_state_dict(hstate)
+    g = torch.Generator().manual_seed(SEED)
+    left, right = ((torch.rand(example.shape, generator=g) * 255).to(dev)
+                   for _ in range(2))
+    with torch.no_grad():
+        probs = forward(estate, hstate, left, right)
+        direct = head(embedder(left), embedder(right))
+        ms = _alternating_ms({
+            "entry": lambda: forward(estate, hstate, left, right),
+            "direct": lambda: head(embedder(left), embedder(right))},
+            O_ENTRY_ITERS)
+    check(probs.shape == (O_ENTRY_BATCH, 2)
+          and bool(torch.isfinite(probs).all())
+          and float((probs.sum(-1) - 1).abs().max()) < 1e-5
+          and maxdiff(probs, direct) < 1e-6,
+          f"entry(): bad probabilities {probs} (direct {direct})")
+    print(f"entry: ArcFace r100 + SiameseHead forward at batch "
+          f"{O_ENTRY_BATCH} of 112^2 pairs: {ms['entry']:.3f} ms through "
+          f"functional_call, {ms['direct']:.3f} ms with the modules called "
+          f"directly (max |diff| {maxdiff(probs, direct):.3e}; median of "
+          f"{N_WINDOWS} windows of "
+          f"{O_ENTRY_ITERS} synchronised calls, taking turns) on {smi}",
+          flush=True)
+    print(f"ingest: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"bottleneck": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3256,18 +3520,23 @@ def main() -> int:
     stamp("m")
     par_counts = phase_parallel(dev, smi)
     stamp("n")
+    ingest_counts = phase_ingest(dev, smi)
+    torch.cuda.empty_cache()
+    stamp("o")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
     # K2, training, the A2 channel, evaluation, the augmented loop,
     # run_alink_mtp, existing_al and ResNet50Classifier's fit for K3, its
-    # own op path for K4; and (n)'s sharded paths for K1, K2 and K3.
+    # own op path for K4; (n)'s sharded paths for K1, K2 and K3; and (o)'s
+    # staging featurize for K3.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
                             + eval_counts["bottleneck"]
                             + resume_counts["bottleneck"]
                             + mtp_counts["bottleneck"]
                             + classify_counts["bottleneck"]
-                            + par_counts["bottleneck"])
+                            + par_counts["bottleneck"]
+                            + ingest_counts["bottleneck"])
     counts["pair_score"] += (eval_counts["pair_score"]
                              + rest_counts["pair_score"]
                              + mtp_counts["pair_score"]

@@ -60,11 +60,13 @@ REPO = Path(__file__).resolve().parent.parent
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """Decode with PIL in the JAX package too (the port has no native
-    loader)."""
+    """Decode with PIL in both packages (their native loaders switched
+    off; tests/test_torch_port_native.py holds the native path)."""
     from alink_tpu.data import native_loader
+    from alink_tpu_torch.data import native_loader as tnative_loader
 
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative_loader, "available", lambda: False)
 
 
 # -- the JAX key schedule's draws --------------------------------------------

@@ -55,6 +55,7 @@ from alink_tpu_torch.data import (PersonStacks, all_pairs_index,
                                   balanced_pair_batches, load_person_stacks,
                                   make_synthetic_dfw, scan_dfw,
                                   split_disguise_data)
+from alink_tpu_torch.data import native_loader as tnative_loader
 from alink_tpu_torch.drivers import alink as talink
 from alink_tpu_torch.drivers import common
 from alink_tpu_torch.models import SiameseHead, VGGFaceResNet50
@@ -65,9 +66,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """Decode with PIL in the JAX package too (the port has no native
-    loader)."""
+    """Decode with PIL in both packages (their native loaders switched
+    off; tests/test_torch_port_native.py holds the native path)."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative_loader, "available", lambda: False)
 
 
 # -- data --------------------------------------------------------------------

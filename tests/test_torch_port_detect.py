@@ -539,8 +539,10 @@ def test_calibrate_main_matches_jax(towers, tmp_path, monkeypatch, capsys):
     and recommended config, to the character."""
     jp, tp = towers
     from alink_tpu.data import native_loader
+    from alink_tpu_torch.data import native_loader as tnative_loader
 
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative_loader, "available", lambda: False)
     rng = np.random.default_rng(16)
     for i in range(3):
         Image.fromarray(rng.integers(0, 256, (72, 72, 3), dtype=np.uint8)

@@ -359,14 +359,16 @@ def test_vectorised_mask_equals_the_double_loop():
 
 def test_generate_predictions_matches_jax(tmp_path, monkeypatch):
     """The same features as JAX's under a shared linear featurizer on the
-    numpy weights; a missing file raises (the masks are positional).  The
-    JAX side decodes with its portable PIL path, the one the port carries
-    (its C++ loader, where built, resizes otherwise)."""
+    numpy weights; a missing file raises (the masks are positional).  Both
+    sides decode with their portable PIL path (both native loaders
+    switched off; tests/test_torch_port_native.py holds the native one)."""
     from PIL import Image
 
     from alink_tpu.data import native_loader
+    from alink_tpu_torch.data import native_loader as tnative_loader
 
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative_loader, "available", lambda: False)
 
     rng = np.random.default_rng(6)
     names = []

@@ -51,6 +51,7 @@ from alink_tpu_torch import train as T
 from alink_tpu_torch.active.committee import Committee
 from alink_tpu_torch.convert import load_flax, state_dict_from_flax
 from alink_tpu_torch.data import load_person_stacks
+from alink_tpu_torch.data import native_loader as tnative_loader
 from alink_tpu_torch.data import prefetch as tprefetch
 from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
                                     init_cascade_params)
@@ -163,6 +164,7 @@ def test_committee_member_params_round_trip_like_jax():
 
 def test_load_person_stacks_pad_to_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative_loader, "available", lambda: False)
     jmake_dfw(str(tmp_path), num_people=3, image_size=16, seed=5)
     people = jscan_dfw(str(tmp_path), "Training_data")
     paths = [p.plain for p in people]

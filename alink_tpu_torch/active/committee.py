@@ -19,6 +19,7 @@ from torch.func import functional_call, vmap
 from alink_tpu_torch.ops import attack as attack_ops
 from alink_tpu_torch.ops import noise as noise_ops
 from alink_tpu_torch.ops.image import resize
+from alink_tpu_torch.utils.profiling import count, span
 
 MODEL_CHANNELS = ("adversarial", "fgsm")
 
@@ -90,11 +91,16 @@ class Committee:
         live state as ``adversarial_params`` and the committee's one-hot
         ``m1_labels``.  ``adversarial_kwargs`` go to the one-pixel attack;
         ``proxy_hw`` among them selects its low-resolution surrogate.  The
-        plain channels draw from ``g`` first, then the DE attack."""
+        plain channels draw from ``g`` first, then the DE attack.
+
+        Spans ``noise.plain``, ``noise.adversarial``, ``noise.fgsm`` and
+        ``noise.resize``; the counter ``noise.pairs``."""
+        count("noise.pairs", left.shape[0])
         plain = tuple(n for n in self.noise_names if n not in MODEL_CHANNELS)
         by_name = {}
         if plain:
-            ls, rs = noise_ops.apply_noise_bank(plain, g, left, right)
+            with span("noise.plain"):
+                ls, rs = noise_ops.apply_noise_bank(plain, g, left, right)
             by_name = {n: (ls[i], rs[i]) for i, n in enumerate(plain)}
         outs = []
         for name in self.noise_names:
@@ -109,18 +115,22 @@ class Committee:
                 attack = (attack_ops.one_pixel_attack_pairs_proxy
                           if "proxy_hw" in akw
                           else attack_ops.one_pixel_attack_pairs)
-                outs.append(attack(adversarial_predict, adversarial_params,
-                                   left, right, m1_labels, g, **akw))
+                with span("noise.adversarial"):
+                    outs.append(attack(adversarial_predict,
+                                       adversarial_params, left, right,
+                                       m1_labels, g, **akw))
             else:
-                outs.append(attack_ops.fgsm_pairs(
-                    adversarial_predict, adversarial_params, left, right,
-                    m1_labels))
+                with span("noise.fgsm"):
+                    outs.append(attack_ops.fgsm_pairs(
+                        adversarial_predict, adversarial_params, left, right,
+                        m1_labels))
         ls = torch.stack([o[0].float() for o in outs])
         rs = torch.stack([o[1].float() for o in outs])
         if tuple(target_res) == tuple(ls.shape[2:4]):
             return ls, rs
-        k, n = ls.shape[:2]
-        rl = resize(ls.reshape((k * n,) + ls.shape[2:]), target_res)
-        rr = resize(rs.reshape((k * n,) + rs.shape[2:]), target_res)
-        return (rl.reshape((k, n) + rl.shape[1:]),
-                rr.reshape((k, n) + rr.shape[1:]))
+        with span("noise.resize"):
+            k, n = ls.shape[:2]
+            rl = resize(ls.reshape((k * n,) + ls.shape[2:]), target_res)
+            rr = resize(rs.reshape((k * n,) + rs.shape[2:]), target_res)
+            return (rl.reshape((k, n) + rl.shape[1:]),
+                    rr.reshape((k, n) + rr.shape[1:]))

@@ -43,6 +43,7 @@ from alink_tpu_torch.ops.image import (affine_warp_batch, crop_and_resize,
                                       crop_and_resize_gather, resize)
 from alink_tpu_torch.ops.nms import nms, nms_batch
 from alink_tpu_torch.ops.umeyama import arcface_template, umeyama
+from alink_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,17 +178,18 @@ def _stage1(params: MTCNNParams, images: torch.Tensor, cfg: CascadeConfig):
         return (torch.zeros((n, k, 4), device=dev),
                 torch.zeros((n, k), device=dev),
                 torch.zeros((n, k), dtype=torch.bool, device=dev))
-    # Per-level NMS 0.5, every level at once (levels share one budget).
-    stacked_valid = torch.stack(valid_l, dim=1)             # (N, S, Kb)
-    keep = nms_batch(torch.stack(boxes_l, dim=1),
-                     torch.stack(scores_l, dim=1), stacked_valid, 0.5)
-    boxes = torch.cat(boxes_l, dim=1)
-    scores = torch.cat(scores_l, dim=1)
-    regs = torch.cat(regs_l, dim=1)
-    valid = (stacked_valid & keep).reshape(n, -1)
-    valid = valid & nms(boxes, scores, valid, 0.7)          # global NMS
-    boxes = torch.round(convert_to_square(refine_with_reg(boxes, regs)))
-    return select_topk(boxes, scores, valid, k)
+    with span("detect.stage1_select"):
+        # Per-level NMS 0.5, every level at once (levels share one budget).
+        stacked_valid = torch.stack(valid_l, dim=1)         # (N, S, Kb)
+        keep = nms_batch(torch.stack(boxes_l, dim=1),
+                         torch.stack(scores_l, dim=1), stacked_valid, 0.5)
+        boxes = torch.cat(boxes_l, dim=1)
+        scores = torch.cat(scores_l, dim=1)
+        regs = torch.cat(regs_l, dim=1)
+        valid = (stacked_valid & keep).reshape(n, -1)
+        valid = valid & nms(boxes, scores, valid, 0.7)      # global NMS
+        boxes = torch.round(convert_to_square(refine_with_reg(boxes, regs)))
+        return select_topk(boxes, scores, valid, k)
 
 
 def _stage2_tail(boxes, scores, valid, reg, cfg: CascadeConfig):
@@ -223,26 +225,30 @@ def _crops(images, boxes, size, cfg: CascadeConfig):
 
 def _stage2(params: MTCNNParams, images, boxes, valid, cfg: CascadeConfig):
     n, k = boxes.shape[:2]
-    # Crops keep the unclipped extent; everything after sees clipped boxes.
-    crops = _crops(images, boxes, (24, 24), cfg)
-    boxes = clip_to_image(boxes, images.shape[2], images.shape[1])
-    prob, reg = params.rnet(crops)
-    return _stage2_tail(boxes, prob[:, 1].reshape(n, k), valid,
-                        reg.reshape(n, k, 4), cfg)
+    with span("detect.stage2"):
+        # Crops keep the unclipped extent; everything after sees clipped
+        # boxes.
+        crops = _crops(images, boxes, (24, 24), cfg)
+        boxes = clip_to_image(boxes, images.shape[2], images.shape[1])
+        prob, reg = params.rnet(crops)
+        return _stage2_tail(boxes, prob[:, 1].reshape(n, k), valid,
+                            reg.reshape(n, k, 4), cfg)
 
 
 def _stage3_tail(boxes, scores, valid, reg, lmk, cfg: CascadeConfig):
     """Threshold, landmarks from the pre-calibration squares, calibrate,
     Min-mode NMS, budget."""
-    valid = valid & (scores > cfg.thresholds[2])
-    bw = (boxes[..., 2] - boxes[..., 0] + 1.0)[..., None]
-    bh = (boxes[..., 3] - boxes[..., 1] + 1.0)[..., None]
-    lx = boxes[..., 0:1] + lmk[..., 0:5] * bw
-    ly = boxes[..., 1:2] + lmk[..., 5:10] * bh
-    landmarks = torch.stack([lx, ly], dim=-1)               # (..., K, 5, 2)
-    boxes = calibrate_box(boxes, reg)
-    valid = valid & nms(boxes, scores, valid, 0.7, mode="min")
-    return select_topk(boxes, scores, valid, cfg.stage3_budget, landmarks)
+    with span("detect.stage3_select"):
+        valid = valid & (scores > cfg.thresholds[2])
+        bw = (boxes[..., 2] - boxes[..., 0] + 1.0)[..., None]
+        bh = (boxes[..., 3] - boxes[..., 1] + 1.0)[..., None]
+        lx = boxes[..., 0:1] + lmk[..., 0:5] * bw
+        ly = boxes[..., 1:2] + lmk[..., 5:10] * bh
+        landmarks = torch.stack([lx, ly], dim=-1)           # (..., K, 5, 2)
+        boxes = calibrate_box(boxes, reg)
+        valid = valid & nms(boxes, scores, valid, 0.7, mode="min")
+        return select_topk(boxes, scores, valid, cfg.stage3_budget,
+                           landmarks)
 
 
 def _stage3(params: MTCNNParams, images, boxes, valid, cfg: CascadeConfig):
@@ -313,18 +319,21 @@ def _detect_faces_crowd(params: MTCNNParams, images, cfg: CascadeConfig):
 
     k1 = b1.shape[1]
     t2 = min(cfg.stage2_total or n * k1, n * k1)
-    idx2, iid2, tv2 = _pool_by_score(s1.reshape(-1), v1.reshape(-1), n, k1,
-                                     t2)
-    bx2 = b1.reshape(-1, 4)[idx2]
-    prob2, reg2 = _pooled_tower(params.rnet, images, bx2, iid2, (24, 24), cfg)
-    bx2 = clip_to_image(bx2, w, h)
-    sc2 = prob2[:, 1]
-    tv2 = tv2 & (sc2 > cfg.thresholds[1])
-    # Scatter cap stage1_budget, the lossless path's width before NMS:
-    # stage2_budget applies after NMS, in the tail.
-    (sb, ss, sr), sv = _scatter_per_image(iid2, tv2, n, cfg.stage1_budget,
-                                          bx2, sc2, reg2)
-    b2, s2, v2 = _stage2_tail(sb, ss, sv, sr, cfg)
+    with span("detect.stage2"):
+        idx2, iid2, tv2 = _pool_by_score(s1.reshape(-1), v1.reshape(-1), n,
+                                         k1, t2)
+        bx2 = b1.reshape(-1, 4)[idx2]
+        prob2, reg2 = _pooled_tower(params.rnet, images, bx2, iid2, (24, 24),
+                                    cfg)
+        bx2 = clip_to_image(bx2, w, h)
+        sc2 = prob2[:, 1]
+        tv2 = tv2 & (sc2 > cfg.thresholds[1])
+        # Scatter cap stage1_budget, the lossless path's width before NMS:
+        # stage2_budget applies after NMS, in the tail.
+        (sb, ss, sr), sv = _scatter_per_image(iid2, tv2, n,
+                                              cfg.stage1_budget, bx2, sc2,
+                                              reg2)
+        b2, s2, v2 = _stage2_tail(sb, ss, sv, sr, cfg)
 
     k2 = b2.shape[1]
     t3 = min(cfg.stage3_total or n * k2, n * k2)
@@ -389,14 +398,21 @@ def _finish(params, images, boxes, scores, valid, landmarks,
 @torch.no_grad()
 def detect_faces(params: MTCNNParams, images: torch.Tensor,
                  cfg: CascadeConfig = CascadeConfig()) -> Detections:
-    """Run the cascade over an (N, H, W, 3) raw-RGB batch."""
+    """Run the cascade over an (N, H, W, 3) raw-RGB batch.
+
+    Spans: ``detect`` around it; inside, ``detect.stage1_select`` (the
+    NMS, squaring and top-k after the pyramid), ``detect.stage2`` (crops,
+    R-Net, its tail) and ``detect.stage3_select`` (the tail after O-Net).
+    None encloses the pyramid or a tower call alone."""
     _check_lnet(params, cfg)
-    if cfg.stage2_total or cfg.stage3_total:
-        return _finish(params, images,
-                       *_detect_faces_crowd(params, images, cfg), cfg)
-    b, _, v = _stage1(params, images, cfg)
-    b, _, v = _stage2(params, images, b, v, cfg)
-    return _finish(params, images, *_stage3(params, images, b, v, cfg), cfg)
+    with span("detect"):
+        if cfg.stage2_total or cfg.stage3_total:
+            return _finish(params, images,
+                           *_detect_faces_crowd(params, images, cfg), cfg)
+        b, _, v = _stage1(params, images, cfg)
+        b, _, v = _stage2(params, images, b, v, cfg)
+        return _finish(params, images, *_stage3(params, images, b, v, cfg),
+                       cfg)
 
 
 @torch.no_grad()

@@ -19,6 +19,7 @@ from alink_tpu_torch.detect.cascade import (CascadeConfig, Detections,
                                             detect_faces)
 from alink_tpu_torch.models.genderage import decode_ga
 from alink_tpu_torch.ops.image import resize
+from alink_tpu_torch.utils.profiling import count, span
 
 
 class FaceModel:
@@ -63,13 +64,16 @@ class FaceModel:
         may warp to NaN, and 0 * NaN is NaN).
         """
         det = detect_faces(self.cascade_params, images, self.cfg)
-        neg = torch.finfo(det.scores.dtype).min
-        best = torch.argmax(torch.where(det.valid, det.scores, neg), dim=1)
-        found = torch.any(det.valid, dim=1)
-        lmk = det.landmarks[torch.arange(images.shape[0],
-                                         device=images.device), best]
-        chips = align_faces(images, lmk[:, None], self.cfg.output_size)[:, 0]
-        return torch.where(found[:, None, None, None], chips, 0.0), found
+        with span("align"):
+            neg = torch.finfo(det.scores.dtype).min
+            best = torch.argmax(torch.where(det.valid, det.scores, neg),
+                                dim=1)
+            found = torch.any(det.valid, dim=1)
+            lmk = det.landmarks[torch.arange(images.shape[0],
+                                             device=images.device), best]
+            chips = align_faces(images, lmk[:, None],
+                                self.cfg.output_size)[:, 0]
+            return torch.where(found[:, None, None, None], chips, 0.0), found
 
     def get_input(self, images) -> torch.Tensor:
         """Aligned face chips (zero where no face was found)."""
@@ -101,9 +105,16 @@ class FaceModel:
 
     @torch.no_grad()
     def pipeline_valid(self, images) -> tuple[torch.Tensor, torch.Tensor]:
-        """(embeddings, found)."""
-        chips, found = self._best_chips(self._to_device(images))
-        return self.embedder(chips), found
+        """(embeddings, found).  Spans ``pipeline``, and inside it
+        ``detect``, ``align`` and ``embed``; counters ``pipeline.calls``
+        and ``pipeline.photos``."""
+        with span("pipeline"):
+            images = self._to_device(images)
+            count("pipeline.calls")
+            count("pipeline.photos", images.shape[0])
+            chips, found = self._best_chips(images)
+            with span("embed"):
+                return self.embedder(chips), found
 
     @torch.no_grad()
     def get_ga(self, aligned, ga_model: nn.Module

@@ -22,6 +22,7 @@ from alink_tpu_torch.models import SiameseHead, VGGFaceResNet50, preprocess
 from alink_tpu_torch.train.ensemble import (EnsembleState,
                                             create_ensemble_state,
                                             train_ensemble)
+from alink_tpu_torch.utils.profiling import count, span
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -50,13 +51,18 @@ def make_resnet50_featurizer(generator: torch.Generator | None = None,
     """The VGGFace-ResNet50 2048-d teacher featurizer with its
     preprocessing (``vggface`` v2): ``(N, H, W, 3)`` pixels on ``device`` ->
     ``(N, 2048)`` f32.  Random weights from ``generator`` unless ``model``
-    is given (converted keras_vggface weights load with ``convert``)."""
+    is given (converted keras_vggface weights load with ``convert``).
+    Each call is a ``featurize`` span and adds to the counters
+    ``featurize.calls`` and ``featurize.images``."""
     if model is None:
         model = VGGFaceResNet50(generator=generator, device=device)
     model.eval()
 
     def featurize(images: torch.Tensor) -> torch.Tensor:
-        return model(preprocess.vggface(images, version=2))
+        count("featurize.calls")
+        count("featurize.images", images.shape[0])
+        with span("featurize"):
+            return model(preprocess.vggface(images, version=2))
 
     return featurize, model
 

@@ -36,6 +36,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from alink_tpu_torch.utils.profiling import count, span
+
 _BINOMIAL = {"best1bin", "randtobest1bin", "currenttobest1bin",
              "best2bin", "rand2bin", "rand1bin"}
 _EXPONENTIAL = {"best1exp", "rand1exp", "randtobest1exp",
@@ -159,112 +161,132 @@ def differential_evolution(
         raise ValueError("Please select a valid mutation strategy")
     if init not in ("latinhypercube", "random"):
         raise ValueError("init must be 'latinhypercube' or 'random'")
-    bounds = torch.as_tensor(bounds, dtype=torch.float32)
-    dev = bounds.device
-    k = bounds.shape[0]
-    m = max(5, popsize * k)
-    bsz = n_problems
-    mid = 0.5 * (bounds[:, 0] + bounds[:, 1])
-    width = torch.abs(bounds[:, 0] - bounds[:, 1])
-    if draw is None:
-        draw = torch_draws(generator, dev)
+    with span("de"):
+        bounds = torch.as_tensor(bounds, dtype=torch.float32)
+        dev = bounds.device
+        k = bounds.shape[0]
+        m = max(5, popsize * k)
+        bsz = n_problems
+        probe = early_stop_fn is not None
+        count("de.calls")
+        count("de.problems", bsz)
+        count("de.budget", bsz * ((maxiter + 1) * m + (maxiter if probe
+                                                       else 0)))
+        mid = 0.5 * (bounds[:, 0] + bounds[:, 1])
+        width = torch.abs(bounds[:, 0] - bounds[:, 1])
+        if draw is None:
+            draw = torch_draws(generator, dev)
 
-    def scale_params(x):
-        return mid + (x - 0.5) * width
+        def scale_params(x):
+            return mid + (x - 0.5) * width
 
-    def get(step, name, shape, high=None):
-        t = torch.as_tensor(draw(step, name, shape, high), device=dev)
-        return t.long() if high is not None else t.float()
+        def get(step, name, shape, high=None):
+            t = torch.as_tensor(draw(step, name, shape, high), device=dev)
+            return t.long() if high is not None else t.float()
 
-    dither = mutation if hasattr(mutation, "__len__") and len(mutation) > 1 \
-        else None
+        dither = mutation if hasattr(mutation, "__len__") and \
+            len(mutation) > 1 else None
 
-    if init == "latinhypercube":
-        u = get(0, "lhs_u", (bsz, m, k))
-        perm = get(0, "lhs_perm", (bsz, k, m), m)
-        samples = (1.0 / m) * u + (torch.arange(
-            m, dtype=torch.float32, device=dev) * (1.0 / m))[None, :, None]
-        pop = torch.gather(samples, 1, perm.transpose(1, 2))
-    else:
-        pop = get(0, "init_u", (bsz, m, k))
-    all_idx = torch.arange(bsz, device=dev)
-    energies = fitness_fn(scale_params(pop), all_idx).float()
-    # Swap the best member into slot 0 (de.py:661-668).
-    ib = torch.argmin(energies, dim=1)
-    first = pop[:, 0].clone()
-    pop[:, 0] = pop[all_idx, ib]
-    pop[all_idx, ib] = first
-    e_first = energies[:, 0].clone()
-    energies[:, 0] = energies[all_idx, ib]
-    energies[all_idx, ib] = e_first
-
-    n_drawn = min(5, m - 1)
-    cand = torch.arange(m, device=dev)
-    nit = torch.zeros(bsz, dtype=torch.int64, device=dev)
-    stopped = torch.zeros(bsz, dtype=torch.bool, device=dev)
-
-    def live():
-        conv = energies.std(dim=1, unbiased=False) <= \
-            atol + tol * energies.mean(dim=1).abs()
-        return (nit < maxiter) & ~stopped & ~conv
-
-    active = live()
-    step = 0
-    while bool(active.any()):
-        idx = torch.nonzero(active).flatten()
-        na = idx.numel()
-        p = pop[idx]
-        e = energies[idx]
-        if dither is not None:
-            lo, hi = sorted(dither)
-            scale = get(step, "dither", (bsz,))[idx] * (hi - lo) + lo
-        else:
-            scale = torch.full((na,), float(mutation), device=dev)
-        r = get(step, "samples", (bsz, m, n_drawn), m - 1)[idx]
-        if n_drawn < 5:
-            r = torch.cat([r, r[..., :5 - n_drawn]], dim=-1)
-        idxs = torch.where(r >= cand[None, :, None], r + 1, r)
-        bprime = _mutate(strategy, p, idxs, scale)
-        fill = get(step, "fill", (bsz, m), k)[idx]
-        if strategy in _BINOMIAL:
-            cross = get(step, "cross", (bsz, m, k))[idx] < recombination
-            cross[torch.arange(na, device=dev)[:, None], cand[None], fill] = \
-                True
-        else:
-            u = get(step, "cross", (bsz, m))[idx]
-            if recombination >= 1.0:
-                length = torch.full((na, m), k, dtype=torch.int64, device=dev)
+        with span("de.init"):
+            if init == "latinhypercube":
+                u = get(0, "lhs_u", (bsz, m, k))
+                perm = get(0, "lhs_perm", (bsz, k, m), m)
+                samples = (1.0 / m) * u + (torch.arange(
+                    m, dtype=torch.float32, device=dev)
+                    * (1.0 / m))[None, :, None]
+                pop = torch.gather(samples, 1, perm.transpose(1, 2))
             else:
-                cr = torch.tensor(max(recombination, 1e-12),
-                                  dtype=torch.float32, device=dev)
-                length = torch.floor(torch.log(u) / torch.log(cr)).to(
-                    torch.int32).long()
-            offs = (torch.arange(k, device=dev)[None, None, :]
-                    - fill[..., None]) % k
-            cross = offs < torch.clamp(length, max=k)[..., None]
-        trial = torch.where(cross, bprime, p)
-        rnd = get(step, "resample", (bsz, m, k))[idx]
-        trial = torch.where((trial < 0) | (trial > 1), rnd, trial)
-        e_trial = fitness_fn(scale_params(trial), idx).float()
-        improved = e_trial < e
-        p = torch.where(improved[..., None], trial, p)
-        e = torch.where(improved, e_trial, e)
-        # Best-slot copy (de.py:712-714).
-        ibest = torch.argmin(e, dim=1)
-        ar = torch.arange(na, device=dev)
-        better = e[ar, ibest] < e[:, 0]
-        p[:, 0] = torch.where(better[:, None], p[ar, ibest], p[:, 0])
-        e[:, 0] = torch.where(better, e[ar, ibest], e[:, 0])
-        pop[idx] = p
-        energies[idx] = e
-        nit[idx] += 1
-        if early_stop_fn is not None:
-            stopped[idx] |= early_stop_fn(scale_params(p[:, 0]), idx).to(
-                torch.bool)
-        active = live()
-        step += 1
+                pop = get(0, "init_u", (bsz, m, k))
+            all_idx = torch.arange(bsz, device=dev)
+            energies = fitness_fn(scale_params(pop), all_idx).float()
+            # Swap the best member into slot 0 (de.py:661-668).
+            ib = torch.argmin(energies, dim=1)
+            first = pop[:, 0].clone()
+            pop[:, 0] = pop[all_idx, ib]
+            pop[all_idx, ib] = first
+            e_first = energies[:, 0].clone()
+            energies[:, 0] = energies[all_idx, ib]
+            energies[all_idx, ib] = e_first
 
-    nfev = (nit + 1) * m + (nit if early_stop_fn is not None else 0)
-    return DEResult(x=scale_params(pop[:, 0]), fun=energies[:, 0], nit=nit,
-                    nfev=nfev, population=scale_params(pop),
-                    energies=energies, stopped_early=stopped)
+            n_drawn = min(5, m - 1)
+            cand = torch.arange(m, device=dev)
+            nit = torch.zeros(bsz, dtype=torch.int64, device=dev)
+            stopped = torch.zeros(bsz, dtype=torch.bool, device=dev)
+
+            def live():
+                conv = energies.std(dim=1, unbiased=False) <= \
+                    atol + tol * energies.mean(dim=1).abs()
+                return (nit < maxiter) & ~stopped & ~conv
+
+            active = live()
+            more = bool(active.any())
+        evals = bsz * m
+        step = 0
+        # A generation's span ends in the test that waits for its work, and
+        # the next opens at once: the device's idle time between two
+        # generations (the test, then ``nonzero``) falls inside a span.
+        while more:
+            with span("de.generation"):
+                idx = torch.nonzero(active).flatten()
+                na = idx.numel()
+                p = pop[idx]
+                e = energies[idx]
+                if dither is not None:
+                    lo, hi = sorted(dither)
+                    scale = get(step, "dither", (bsz,))[idx] * (hi - lo) + lo
+                else:
+                    scale = torch.full((na,), float(mutation), device=dev)
+                r = get(step, "samples", (bsz, m, n_drawn), m - 1)[idx]
+                if n_drawn < 5:
+                    r = torch.cat([r, r[..., :5 - n_drawn]], dim=-1)
+                idxs = torch.where(r >= cand[None, :, None], r + 1, r)
+                bprime = _mutate(strategy, p, idxs, scale)
+                fill = get(step, "fill", (bsz, m), k)[idx]
+                if strategy in _BINOMIAL:
+                    cross = get(step, "cross", (bsz, m, k))[idx] < \
+                        recombination
+                    cross[torch.arange(na, device=dev)[:, None], cand[None],
+                          fill] = True
+                else:
+                    u = get(step, "cross", (bsz, m))[idx]
+                    if recombination >= 1.0:
+                        length = torch.full((na, m), k, dtype=torch.int64,
+                                            device=dev)
+                    else:
+                        cr = torch.tensor(max(recombination, 1e-12),
+                                          dtype=torch.float32, device=dev)
+                        length = torch.floor(torch.log(u) / torch.log(cr)).to(
+                            torch.int32).long()
+                    offs = (torch.arange(k, device=dev)[None, None, :]
+                            - fill[..., None]) % k
+                    cross = offs < torch.clamp(length, max=k)[..., None]
+                trial = torch.where(cross, bprime, p)
+                rnd = get(step, "resample", (bsz, m, k))[idx]
+                trial = torch.where((trial < 0) | (trial > 1), rnd, trial)
+                e_trial = fitness_fn(scale_params(trial), idx).float()
+                improved = e_trial < e
+                p = torch.where(improved[..., None], trial, p)
+                e = torch.where(improved, e_trial, e)
+                # Best-slot copy (de.py:712-714).
+                ibest = torch.argmin(e, dim=1)
+                ar = torch.arange(na, device=dev)
+                better = e[ar, ibest] < e[:, 0]
+                p[:, 0] = torch.where(better[:, None], p[ar, ibest], p[:, 0])
+                e[:, 0] = torch.where(better, e[ar, ibest], e[:, 0])
+                pop[idx] = p
+                energies[idx] = e
+                nit[idx] += 1
+                if probe:
+                    stopped[idx] |= early_stop_fn(scale_params(p[:, 0]),
+                                                  idx).to(torch.bool)
+                evals += na * m + (na if probe else 0)
+                step += 1
+                active = live()
+                more = bool(active.any())
+        count("de.generations", step)
+        count("de.evals", evals)
+
+        nfev = (nit + 1) * m + (nit if probe else 0)
+        return DEResult(x=scale_params(pop[:, 0]), fun=energies[:, 0],
+                        nit=nit, nfev=nfev, population=scale_params(pop),
+                        energies=energies, stopped_early=stopped)

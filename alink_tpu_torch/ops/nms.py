@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from alink_tpu_torch.utils.profiling import count, span
+
 
 def iou_matrix(boxes: torch.Tensor, mode: str = "union") -> torch.Tensor:
     """Pairwise overlap of (..., K, 4) boxes -> (..., K, K)."""
@@ -41,21 +43,25 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     ``keep = valid & ~any_j(dom[j, i] & keep[j])`` iterated from
     ``keep = valid``: after t sweeps every candidate whose chain of
     dominators is at most t long holds its greedy value, so the loop ends
-    after (longest chain + 1) sweeps, at most K + 1.
+    after (longest chain + 1) sweeps, at most K + 1.  Each sweep ends in a
+    host sync (``torch.equal``); the ``nms.sweeps`` counter counts them.
     """
-    k = boxes.shape[-2]
-    overlap = iou_matrix(boxes, mode=mode)
-    idx = torch.arange(k, device=boxes.device)
-    s_j, s_i = scores[..., :, None], scores[..., None, :]
-    higher = (s_j > s_i) | ((s_j == s_i) & (idx[:, None] < idx[None, :]))
-    dom = (overlap > threshold) & higher & valid[..., :, None]
-    keep = valid
-    for _ in range(k + 1):
-        new = valid & ~torch.any(dom & keep[..., :, None], dim=-2)
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return keep
+    with span("nms"):
+        k = boxes.shape[-2]
+        overlap = iou_matrix(boxes, mode=mode)
+        idx = torch.arange(k, device=boxes.device)
+        s_j, s_i = scores[..., :, None], scores[..., None, :]
+        higher = (s_j > s_i) | ((s_j == s_i) & (idx[:, None] < idx[None, :]))
+        dom = (overlap > threshold) & higher & valid[..., :, None]
+        keep = valid
+        for sweeps in range(1, k + 2):
+            new = valid & ~torch.any(dom & keep[..., :, None], dim=-2)
+            if torch.equal(new, keep):
+                break
+            keep = new
+        count("nms.calls")
+        count("nms.sweeps", sweeps)
+        return keep
 
 
 def nms_batch(boxes, scores, valid, threshold, mode="union") -> torch.Tensor:

@@ -68,33 +68,24 @@ def a2_breakdown(predict, params, left: torch.Tensor, right: torch.Tensor,
                  maxiter: int = A2_DE_MAXITER, **de_kw) -> dict[str, float]:
     """The adversarial channels of one chunk: the one-pixel DE attack on the
     first ``de_pairs`` pairs (wall time of its init and of each generation,
-    nfev, K3 launches) and FGSM on all pairs (ms, K3 launches), each run
-    once after a warm-up FGSM call.  ``predict`` is the student end to
-    end (``drivers.alink.make_adversarial_predict``)."""
+    read from the solver's ``de.init`` and ``de.generation`` spans under a
+    host profiler, generations from its ``de.generations`` counter, nfev,
+    K3 launches) and FGSM on all pairs (ms, K3 launches), each run once
+    after a warm-up FGSM call.  ``predict`` is the student end to end
+    (``drivers.alink.make_adversarial_predict``)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from alink_tpu_torch.ops import attack
     from alink_tpu_torch.ops.resblock import bottleneck_s1_kernel as k3
+    from alink_tpu_torch.utils.profiling import SPAN_PREFIX, counters
 
     dev = left.device
-    marks = []
-    solver = attack.differential_evolution
-
-    def timed_fitness(fitness):
-        def fn(x, idx):
-            out = fitness(x, idx)
-            _sync(dev)
-            marks.append(time.perf_counter())
-            return out
-        return fn
-
-    def recorded(fitness, *a, **k):
-        return solver(timed_fitness(fitness), *a, **k)
-
     attack.fgsm_pairs(predict, params, left, right, labels)
     out: dict[str, float] = {}
-    attack.differential_evolution = recorded
-    try:
-        k3.launches = 0
-        _sync(dev)
+    k3.launches = 0
+    before = counters().get("de.generations", 0)
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         with torch.no_grad():
             attack.one_pixel_attack_pairs(
@@ -102,12 +93,16 @@ def a2_breakdown(predict, params, left: torch.Tensor, right: torch.Tensor,
                 labels[:de_pairs], g, maxiter=maxiter, **de_kw)
         _sync(dev)
         t1 = time.perf_counter()
-    finally:
-        attack.differential_evolution = solver
-    steps = np.diff([t0] + marks)
-    out.update(de_pairs=de_pairs, de_s=t1 - t0, de_init_s=float(steps[0]),
-               de_generations=len(steps) - 1,
-               de_s_per_generation=[float(v) for v in steps[1:]],
+    generations = counters()["de.generations"] - before
+    spans = {"de.init": [], "de.generation": []}
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        name = e.name[len(SPAN_PREFIX):]
+        if e.name.startswith(SPAN_PREFIX) and name in spans:
+            spans[name].append(
+                (e.time_range.end - e.time_range.start) * 1e-6)
+    out.update(de_pairs=de_pairs, de_s=t1 - t0,
+               de_init_s=spans["de.init"][0], de_generations=generations,
+               de_s_per_generation=spans["de.generation"],
                de_k3_launches=k3.launches)
     k3.launches = 0
     _sync(dev)

@@ -1,7 +1,7 @@
 """Framework utilities (counterpart of ``alink_tpu.utils``).
 
-- ``profiling`` — per-phase wall-clock timing + ``torch.profiler`` trace
-  capture;
+- ``profiling`` — per-phase wall-clock timing, ``torch.profiler`` trace
+  capture, the program's ``alink/`` spans and host-integer counters;
 - ``metrics``   — structured JSONL metrics logging;
 - ``resilience``— failure detection + retry/elastic recovery:
   ``run_with_retries`` supervision, shared-fs ``Heartbeat`` peer liveness,

@@ -1,21 +1,70 @@
-"""Per-phase wall-clock accounting (counterpart of
+"""Per-phase wall-clock accounting, spans and counters (counterpart of
 ``alink_tpu/utils/profiling.py``).
 
 CUDA work is asynchronous: a phase on a CUDA device synchronises it before
 its clock stops, so the phase is charged its own device work and not the
 next phase's first wait.  ``trace`` wraps ``torch.profiler`` (the
 counterpart of ``jax.profiler.trace``) and writes a Chrome trace, viewable
-in Perfetto or ``chrome://tracing``.
+in Perfetto or ``chrome://tracing``, and the counts made while it was open.
+
+``span(name)`` marks a stretch of the program as ``alink/<name>`` on the
+profiler's clock, nested under the span that opened it; it records only
+while a profiler records, and otherwise costs one check of the profiler's
+flag.  ``count(name, n)`` adds a host integer to a process-wide registry
+that ``counters()`` reads, with the kernels' launch counts beside it.
+Nothing here reads the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from collections import defaultdict
 
 import torch
+
+SPAN_PREFIX = "alink/"
+
+_recording = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_COUNTS: dict[str, int] = defaultdict(int)
+
+
+def span(name: str):
+    """A context manager: ``record_function("alink/" + name)`` while a
+    ``torch.profiler`` records, else a shared no-op."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``.  ``n`` is a host integer the caller
+    already holds (a loop count, ``numel()``, a shape), never a tensor:
+    reading one would wait for the device."""
+    if not isinstance(n, int):
+        raise TypeError(f"count({name!r}) takes a host int, not "
+                        f"{type(n).__name__}")
+    _COUNTS[name] += n
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of every counter, with the four kernels' launch counts
+    as ``launches.k1`` to ``launches.k4``."""
+    from alink_tpu_torch.ops.image import affine_warp_batch_kernel
+    from alink_tpu_torch.ops.pairwise import score_matrix_kernel
+    from alink_tpu_torch.ops.qconv import conv3x3_s1_int8_flat_kernel
+    from alink_tpu_torch.ops.resblock import bottleneck_s1_kernel
+
+    out = dict(_COUNTS)
+    for k, fn in (("k1", score_matrix_kernel),
+                  ("k2", affine_warp_batch_kernel),
+                  ("k3", bottleneck_s1_kernel),
+                  ("k4", conv3x3_s1_int8_flat_kernel)):
+        out[f"launches.{k}"] = fn.launches
+    return out
 
 
 class Timings:
@@ -32,14 +81,17 @@ class Timings:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Time the block, its device work included, as phase ``name``
+        (and ``span(name)`` over the same stretch)."""
         self._sync()
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
+        with span(name):
+            start = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._sync()
+                self.totals[name] += time.perf_counter() - start
+                self.counts[name] += 1
 
     def timed(self, name: str, fn, *args, **kwargs):
         """Run ``fn(*args, **kwargs)`` and charge its wall time, its CUDA
@@ -61,12 +113,19 @@ class Timings:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace (host ops, and CUDA kernels when a
-    card is present) into ``<log_dir>/trace.json``; yields the profiler."""
+    """Capture a ``torch.profiler`` trace (host ops and spans, and CUDA
+    kernels when a card is present) into ``<log_dir>/trace.json``, and the
+    counts made meanwhile into ``<log_dir>/counters.json``; yields the
+    profiler."""
     os.makedirs(log_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    before = counters()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
+    after = counters()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump({k: v - before.get(k, 0) for k, v in sorted(after.items())},
+                  f, indent=1)

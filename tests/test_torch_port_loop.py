@@ -123,10 +123,18 @@ def test_timings_and_trace(tmp_path):
         with t.phase(name):
             pass
     assert t.counts == {"a": 2, "b": 1} and "ms/call" in t.report()
+    tutils.profiling.count("test.trace", 7)      # before: not in the file
     with tutils.trace(str(tmp_path / "tr")):
-        torch.ones(64).sum()
+        with t.phase("c"):
+            torch.ones(64).sum()
+        tutils.profiling.count("test.trace", 3)
+    tutils.profiling.count("test.trace", 5)      # after: not in the file
     trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
     assert trace["traceEvents"]
+    assert any(e.get("name") == "alink/c" for e in trace["traceEvents"])
+    counts = json.loads((tmp_path / "tr" / "counters.json").read_text())
+    assert counts["test.trace"] == 3
+    assert {f"launches.k{i}" for i in range(1, 5)} <= set(counts)
 
 
 # -- check_finite ------------------------------------------------------------

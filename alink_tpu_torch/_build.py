@@ -4,11 +4,11 @@ The sources in ``alink_tpu_torch/csrc/*.cu`` have a plain C interface.  At
 first use each is compiled by its own ``nvcc`` for ``sm_90a``, all at once,
 and the objects are linked into one shared library under
 ``build/alink_tpu_torch/`` (listed in ``.gitignore``), named by a hash of the
-sources and flags, and loaded with ``ctypes``.  Every pointer
-and the stream cross as ``c_void_p``, every int as ``c_int``.  Each C entry
-point returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
-non-zero status, because a refused launch never runs and a later
-synchronise would not report it.
+sources and flags, and loaded with ``ctypes``.  Every pointer and the
+stream cross as ``c_void_p``, every int as ``c_int``, every float as
+``c_float``.  Each C entry point returns ``cudaGetLastError()`` after its
+launch; ``check`` raises on a non-zero status, because a refused launch
+never runs and a later synchronise would not report it.
 
 Host libraries (C++ with no CUDA, such as the JAX package's batched image
 decoder ``native/loader.cc``) are built the same way by ``build_host``, with
@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # img, dtype (0 f32, 1 uint8, 2 bf16), M (forward affines), out, n, h,
     # w, c, oh, ow,
@@ -53,6 +54,13 @@ _SIGNATURES = {
     # ldo, mode, n, h, w, wp, r, lead, stages, resident, box_rows, nbox,
     # grid_x, stream
     "alink_qconv": [_P, _I, _I, _I, _P, _I] + [_P] * 5 + [_I] * 13 + [_P],
+    # mode, dtype, x, r, out, rows, c, gamma, beta, mean, var, eps, gamma2,
+    # beta2, mean2, var2, eps2, alpha, stream
+    "alink_bn_act": [_I, _I, _P, _P, _P, _I, _I] + [_P] * 4 + [_F]
+                    + [_P] * 4 + [_F, _P, _P],
+    # mode, dtype, g, x, dx, dr, rows, c, then as alink_bn_act
+    "alink_bn_act_backward": [_I, _I, _P, _P, _P, _P, _I, _I] + [_P] * 4
+                             + [_F] + [_P] * 4 + [_F, _P, _P],
 }
 
 _lock = threading.Lock()

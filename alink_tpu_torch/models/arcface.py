@@ -13,7 +13,11 @@ Input is raw NHWC RGB in [0, 255].  Inside the tower the layout is NCHW
 (a permuted view of the NHWC input, so cuDNN sees channels-last memory).
 The flatten before fc1 is NHWC order, as in the JAX model, so converted
 fc1 weights need no permutation.  Parameters are f32; convolutions and BN
-run in ``dtype`` (bf16 by default), fc1 in f32.  The JAX model's
+run in ``dtype`` (bf16 by default), fc1 in f32.  Each BN with the PReLU
+or the residual add that follows it is one call of ``ops.bn_act.bn_act``
+(a fused CUDA pass on the card, the modules' own arithmetic bit for bit;
+three a unit), on the parameters of the ``bn``/``prelu`` modules, whose
+names the converters and the tensor-parallel shards use.  The JAX model's
 ``scan_units`` is a TPU compile-time knob and is not ported.
 """
 
@@ -27,6 +31,7 @@ from torch import nn
 
 from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _conv, _FrozenBN,
                                            _make_conv, _make_dense)
+from alink_tpu_torch.ops.bn_act import bn_act
 
 
 class _PReLU(nn.Module):
@@ -69,19 +74,18 @@ class _IRUnit(nn.Module):
         parallel split (``parallel/tp.py``) passes its all-reduce over the
         model axis."""
         dt = self.dtype
-        y = self.bn[0](x)
+        y = bn_act(x, self.bn[0])
         y = _conv(y, self.conv[0], dt, padding=1)
-        y = self.prelu[0](self.bn[1](y))
+        y = bn_act(y, self.bn[1], prelu=self.prelu[0])
         # Symmetric (1, 1) padding on the strided conv (MXNet/Caffe grid).
         y = _conv(y, self.conv[1], dt, self.stride, padding=1)
         if reduce is not None:
             y = reduce(y)
-        y = self.bn[2](y)
         if len(self.conv) == 3:
-            shortcut = self.bn[3](_conv(x, self.conv[2], dt, self.stride))
-        else:
-            shortcut = x.to(dt)
-        return y + shortcut
+            return bn_act(y, self.bn[2],
+                          shortcut=_conv(x, self.conv[2], dt, self.stride),
+                          shortcut_bn=self.bn[3])
+        return bn_act(y, self.bn[2], shortcut=x)
 
 
 class ArcFaceResNet100(nn.Module):
@@ -135,12 +139,12 @@ class ArcFaceResNet100(nn.Module):
         The stem, the units and the head are the one copy of the topology
         that the tensor- and pipeline-parallel forwards share."""
         x = x.permute(0, 3, 1, 2)
-        return self.prelu[0](self.bn[0](_conv(x, self.conv[0], self.dtype,
-                                              padding=1)))
+        return bn_act(_conv(x, self.conv[0], self.dtype, padding=1),
+                      self.bn[0], prelu=self.prelu[0])
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """The last unit's output -> (N, embedding_dim) f32."""
-        x = self.bn[1](x)
+        x = bn_act(x, self.bn[1])
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
         x = F.linear(x, self.dense[0].weight, self.dense[0].bias)
         x = x * self.fc1_gamma + self.fc1_beta

@@ -160,8 +160,11 @@ def arcface_pp_apply(mesh, model, images, *, stage_sizes=None,
                 x = model.stem(mbs[k])
             else:
                 hw, ch = bshapes[r - 1]
+                # Dense channels-last, as a unit's own output is (the
+                # fused BN / add kernel reads rows of C contiguous values).
                 x = env[:, :blens[r - 1]].reshape(mb, hw, hw, ch).permute(
-                    0, 3, 1, 2).to(model.dtype)
+                    0, 3, 1, 2).to(model.dtype).contiguous(
+                        memory_format=torch.channels_last)
             for i in range(starts[r], ends[r]):
                 x = model.units[i](x)
             if r == n_ranks - 1:

@@ -52,7 +52,11 @@ def count(name: str, n: int = 1) -> None:
 
 def counters() -> dict[str, int]:
     """A snapshot of every counter, with the four kernels' launch counts
-    as ``launches.k1`` to ``launches.k4``."""
+    as ``launches.k1`` to ``launches.k4`` and the fused BN / PReLU / add
+    kernel's as ``launches.bn_act`` (its backward's as
+    ``launches.bn_act_backward``)."""
+    from alink_tpu_torch.ops.bn_act import (bn_act_backward_kernel,
+                                            bn_act_kernel)
     from alink_tpu_torch.ops.image import affine_warp_batch_kernel
     from alink_tpu_torch.ops.pairwise import score_matrix_kernel
     from alink_tpu_torch.ops.qconv import conv3x3_s1_int8_flat_kernel
@@ -64,6 +68,8 @@ def counters() -> dict[str, int]:
                   ("k3", bottleneck_s1_kernel),
                   ("k4", conv3x3_s1_int8_flat_kernel)):
         out[f"launches.{k}"] = fn.launches
+    out["launches.bn_act"] = bn_act_kernel.launches
+    out["launches.bn_act_backward"] = bn_act_backward_kernel.launches
     return out
 
 

@@ -185,6 +185,27 @@ o. ingest: a DFW-protocol tree of 1,008 camera-size photos (112 people x
    staged faces, and ``tools.dryrun_multichip.entry()``'s forward (ArcFace
    r100 + ``SiameseHead``, batch 8 of 112^2 pairs) in ms.
 
+p. the fused BN / PReLU / residual add (``ops.bn_act``, ArcFace's three
+   passes a unit) at every (mode, H, C) an r100 forward at batch 256
+   calls it with (bf16), and at f32, a tensor-parallel padded width (171)
+   and a misaligned pointer (the kernel's one-element path): the kernel
+   ``torch.equal`` to ``bn_act_reference``, its device time (``graph_ms``)
+   and time per call from Python beside its bound (bytes / 3.35 TB/s),
+   the plain version's device time and the library's yardstick
+   (PyTorch's vectorised elementwise kernel on the same bytes), each
+   shape and summed over the 149 calls of one forward; a whole r100
+   forward at batch 256 through the kernel against the ``_FrozenBN`` /
+   ``_PReLU`` / ``+`` module chain (bit-equal) and both timed in turns,
+   the kernels each launches and their device ms, ``launches.bn_act`` 149
+   in ``profiling.trace``'s ``counters.json``; the FGSM pixel gradient on
+   8 chips through the autograd function's backward (149 launches of
+   ``alink_bn_act_backward``, each case above also held to
+   ``bn_act_backward_reference`` and timed) against the module chain's
+   (bit-equal, cuDNN deterministic), and one FGSM step
+   (``fgsm_pairs``, 32 pairs) through each, timed in turns.  The kernels
+   line counts bn_act's launches in the r100 forwards of (c) and (k)'s
+   profiles, each held to 149 a forward.
+
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
 from the shapes, the card's peaks and memory rate); the last line is
@@ -193,6 +214,7 @@ from the shapes, the card's peaks and memory rate); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1842,6 +1864,28 @@ def rng_images(n: int) -> np.ndarray:
         0, 255, (n, F_IMAGE, F_IMAGE, 3)).astype(np.float32)
 
 
+@contextlib.contextmanager
+def bn_act_counted(model, what: str, counts: dict):
+    """``bn_act_kernel.launches`` over the block, counted from 0, held to
+    149 a forward of the r100 ``model`` inside it (a forward pre-hook
+    counts them), and added to ``counts["bn_act"]``."""
+    from alink_tpu_torch.ops.bn_act import bn_act_kernel
+
+    forwards = []
+    hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    bn_act_kernel.launches = 0
+    try:
+        yield
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    n = bn_act_kernel.launches
+    check(bool(forwards) and n == 149 * len(forwards),
+          f"{what}: bn_act launched {n} times over {len(forwards)} r100 "
+          f"forwards, not 149 each")
+    counts["bn_act"] = counts.get("bn_act", 0) + n
+
+
 def phase_slice(dev, g, rng, head):
     """(c): the serving path at full width; returns (fm, launch counts)."""
     from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
@@ -1863,7 +1907,9 @@ def phase_slice(dev, g, rng, head):
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    with MicroBatcher(fm.process, max_batch=8, max_delay_s=0.05) as mb:
+    bn_act_count = {}
+    with bn_act_counted(fm.embedder, "serving slice", bn_act_count), \
+            MicroBatcher(fm.process, max_batch=8, max_delay_s=0.05) as mb:
         futs = [None] * 8
 
         def ask(i):
@@ -1875,14 +1921,14 @@ def phase_slice(dev, g, rng, head):
         for t in threads:
             t.join(timeout=60)
         answers = [f.result(timeout=300) for f in futs]
-    verifier = Verifier(fm.process, head)
-    pairs = verifier.verify_pairs(photos[:32], photos[32:64])
-    verifier.enroll(photos[:128], list(range(128)))
-    labels, top = verifier.identify(photos[128:160], k=5)
-    grid = verifier.score_matrix(photos[:256])
-    torch.cuda.synchronize()
+        verifier = Verifier(fm.process, head)
+        pairs = verifier.verify_pairs(photos[:32], photos[32:64])
+        verifier.enroll(photos[:128], list(range(128)))
+        labels, top = verifier.identify(photos[128:160], k=5)
+        grid = verifier.score_matrix(photos[:256])
     counts = {"pair_score": pairwise.score_matrix_kernel.launches,
-              "affine_warp": image.affine_warp_batch_kernel.launches}
+              "affine_warp": image.affine_warp_batch_kernel.launches,
+              "bn_act": bn_act_count["bn_act"]}
     print(f"slice: requests + verify/enroll/identify/score_matrix in "
           f"{time.perf_counter() - t0:.1f} s; launches {counts}", flush=True)
 
@@ -1974,7 +2020,8 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
     """(k), serving side: the crowd profile, faces/s under each profile,
     L-Net, ``detect_faces_limited``, ``profile_cascade`` and
     ``calibrate_budgets``, genderage and the score matrix over crowd
-    embeddings; returns K1's and K2's launches."""
+    embeddings; returns K1's and K2's launches, and bn_act's in the
+    profiles' r100 forwards."""
     from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
                                         detect_faces, detect_faces_limited,
                                         init_cascade_params)
@@ -1988,7 +2035,7 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
 
     t_phase = time.perf_counter()
     k1, k2 = pairwise.score_matrix_kernel, image.affine_warp_batch_kernel
-    counts = {"pair_score": 0, "affine_warp": 0}
+    counts = {"pair_score": 0, "affine_warp": 0, "bn_act": 0}
     photos = torch.as_tensor(rng.uniform(0, 255, (BATCH, IMG, IMG, 3)),
                              dtype=torch.float32, device=dev)
     wc = CascadeConfig.worst_case(thresholds=K_OPEN)
@@ -2061,9 +2108,9 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
         fm = FaceModel(emb, pb, getattr(CascadeConfig, name)(
             thresholds=K_OPEN))
         k2.launches = 0
-        s = summary(windows(lambda: fm.process(photos), dev, n_windows=7,
-                            iters=K_WINDOW_ITERS))
-        torch.cuda.synchronize()
+        with bn_act_counted(emb, f"process {name}", counts):
+            s = summary(windows(lambda: fm.process(photos), dev,
+                                n_windows=7, iters=K_WINDOW_ITERS))
         counts["affine_warp"] += k2.launches
         print(f"process {name}: {BATCH * 1e3 / s['median_ms']:.1f} faces/s "
               f"at batch {BATCH} (median of 7 windows of {K_WINDOW_ITERS} "
@@ -3447,6 +3494,317 @@ def phase_ingest(dev, smi: str, people: int = O_PEOPLE) -> dict:
     return {"bottleneck": launches}
 
 
+P_BATCH = 256            # serving's embed batch (serve_r100_typical)
+P_FGSM = 8               # chips under the FGSM gradient check
+P_CALLS = 5              # captured calls a shape (20 would hold ~30 GB)
+P_FGSM_PAIRS = 32        # pairs of the timed FGSM step
+
+
+def _module_chain(x, bn, prelu=None, shortcut=None, shortcut_bn=None):
+    """``ops.bn_act.bn_act`` through the ``_FrozenBN`` / ``_PReLU`` modules
+    and ``+``: the unfused path ArcFace ran before the fused op."""
+    y = bn(x)
+    if prelu is not None:
+        return prelu(y)
+    if shortcut is None:
+        return y
+    return y + (shortcut.to(bn.dtype) if shortcut_bn is None
+                else shortcut_bn(shortcut))
+
+
+def _bn_act_mode(prelu, shortcut, shortcut_bn) -> str:
+    return ("bn_prelu" if prelu is not None else "bn_add_bn"
+            if shortcut_bn is not None else "bn_add" if shortcut is not None
+            else "bn")
+
+
+@contextlib.contextmanager
+def _arcface_bn_act(fn):
+    """ArcFace's ``bn_act`` swapped for ``fn`` inside the block (the
+    model's own forward, the stem, units and head unchanged)."""
+    import alink_tpu_torch.models.arcface as arcface
+
+    real, arcface.bn_act = arcface.bn_act, fn
+    try:
+        yield
+    finally:
+        arcface.bn_act = real
+
+
+def _randomise_bn(model, g: torch.Generator) -> None:
+    """BN statistics and PReLU slopes drawn from ``g`` (the defaults are
+    an identity BN), the residual branch's last BN scaled down so 49
+    units stay in range."""
+    with torch.no_grad():
+        for name, t in list(model.named_buffers()) + list(
+                model.named_parameters()):
+            leaf = name.rsplit(".", 1)[-1]
+            n = t.shape
+            draw = {"gamma": lambda: 1.0 + 0.2 * torch.randn(n, generator=g),
+                    "beta": lambda: 0.3 * torch.randn(n, generator=g),
+                    "mean": lambda: 0.3 * torch.randn(n, generator=g),
+                    "var": lambda: 0.5 + 1.5 * torch.rand(n, generator=g),
+                    "alpha": lambda: 0.05 + 0.45 * torch.rand(n, generator=g)
+                    }.get(leaf)
+            if draw is None:
+                continue
+            v = draw()
+            if leaf == "gamma" and ".bn.2." in f".{name}":
+                v = 0.2 * v
+            t.copy_(v.to(t.device))
+
+
+def _bn_act_case(mode, shape, dtype, g, offset: int = 0):
+    """Seeded activations (channels-last, ``offset`` elements into their
+    storage) and statistics for one call of ``bn_act_kernel``; ``g`` is a
+    generator on the card."""
+    from alink_tpu_torch.ops.bn_act import BNParams
+
+    n, c, h, w = shape
+    dev = g.device
+
+    def act():
+        flat = torch.randn(n * c * h * w + offset, generator=g, device=dev)
+        return (2.0 * flat).to(dtype)[offset:].view(n, h, w, c).permute(
+            0, 3, 1, 2)
+
+    def vec(lo, spread, normal=True):
+        draw = torch.randn if normal else torch.rand
+        return lo + spread * draw(c, generator=g, device=dev)
+
+    def stats():
+        return BNParams(vec(1.0, 0.2), vec(0.0, 0.3), vec(0.0, 0.3),
+                        vec(0.5, 1.5, normal=False), 2e-5)
+
+    x, bn = act(), stats()
+    alpha = vec(0.05, 0.45, normal=False) if mode == "bn_prelu" else None
+    shortcut = act() if mode.startswith("bn_add") else None
+    shortcut_bn = stats() if mode == "bn_add_bn" else None
+    return x, bn, dtype, alpha, shortcut, shortcut_bn
+
+
+def phase_bn_act(dev, smi: str) -> dict:
+    """(p) the fused BN / PReLU / add: ``bn_act_kernel`` against
+    ``bn_act_reference`` at every (mode, H, C) of r100 at batch 256 (and
+    at f32, a padded width and a misaligned pointer), timed beside its
+    bound and the plain version; a whole r100 forward and an FGSM
+    gradient through the kernel against the module chain; the launches of
+    one forward from ``profiling.trace``'s ``counters.json``."""
+    from alink_tpu_torch.models import ArcFaceResNet100
+    from alink_tpu_torch.ops import bn_act as B
+    from alink_tpu_torch.tools.bench_kernels import graph_ms as g_ms
+    from alink_tpu_torch.tools.bench_kernels import kernel_ms as k_ms
+    from alink_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 15)
+    model = ArcFaceResNet100(generator=g, device=dev)
+    _randomise_bn(model, g)
+    model.eval().requires_grad_(False)
+    photos = (torch.rand((P_BATCH, 112, 112, 3), generator=g) * 255).to(dev)
+
+    calls = []
+
+    def recording(x, bn, prelu=None, shortcut=None, shortcut_bn=None):
+        calls.append((_bn_act_mode(prelu, shortcut, shortcut_bn),
+                      tuple(x.shape)))
+        return B.bn_act(x, bn, prelu, shortcut, shortcut_bn)
+
+    with torch.no_grad(), _arcface_bn_act(recording):
+        model(photos)
+    check(len(calls) == 149, f"bn_act: {len(calls)} calls an r100 forward")
+    shapes = sorted(set(calls), key=lambda ms: (-ms[1][2], ms[1][1], ms[0]))
+    extra = [("bn_prelu", (P_BATCH, 171, 28, 28), torch.bfloat16, 0),
+             ("bn_add_bn", (P_BATCH, 171, 14, 14), torch.float32, 0),
+             ("bn_add", (P_BATCH, 128, 28, 28), torch.bfloat16, 1),
+             ("bn", (P_BATCH, 64, 56, 56), torch.float32, 0),
+             ("bn_prelu", (P_BATCH, 512, 7, 7), torch.float32, 0)]
+    cases = [(m, sh, torch.bfloat16, 0) for m, sh in shapes] + extra
+    per, per_b = {}, {}
+    err = 0.0
+    gd = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for mode, shape, dtype, offset in cases:
+        args = _bn_act_case(mode, shape, dtype, gd, offset)
+        got = B.bn_act_kernel(*args)
+        want = B.bn_act_reference(*args)
+        diff = maxdiff(got, want)
+        err = max(err, diff)
+        check(torch.equal(got, want) and got.dtype == dtype,
+              f"bn_act {mode} {shape} {dtype} offset {offset}: max |diff| "
+              f"{diff:.3e}")
+        elt = torch.finfo(dtype).bits // 8
+        nbytes = (3 if mode.startswith("bn_add") else 2) * got.numel() * elt
+        ms, call = k_ms(lambda: B.bn_act_kernel(*args), B.bn_act_kernel,
+                        calls=P_CALLS)
+        plain = g_ms(lambda: B.bn_act_reference(*args), calls=P_CALLS)
+        # The library's yardstick: PyTorch's vectorised elementwise kernel
+        # on the same bytes (x * 2, or x + shortcut in the add modes).
+        x, shortcut = args[0], args[4]
+        library = g_ms((lambda: x + shortcut) if shortcut is not None
+                       else (lambda: x * 2), calls=P_CALLS)
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        if offset == 0 and dtype == torch.bfloat16:
+            per[(mode, shape)] = (ms, call, plain, bound, library)
+        print(f"bn_act {mode} {shape} {str(dtype)[6:]}"
+              f"{' offset 1' if offset else ''}: exact; kernel {ms:.4f} ms "
+              f"(per call from Python {call:.4f}), bound {bound:.4f} "
+              f"({100 * bound / ms:.1f} % of it, {nbytes / ms / 1e6:.0f} "
+              f"GB/s), plain {plain:.4f} ms, library elementwise "
+              f"{library:.4f} ms ({100 * bound / library:.1f} %), "
+              f"{nbytes / 1e6:.1f} MB", flush=True)
+        # The backward (``alink_bn_act_backward``) on a seeded gradient.
+        grad = _bn_act_case("bn", shape, dtype, gd, offset)[0]
+        bargs = (grad, x, args[1], dtype, args[3], shortcut is not None,
+                 args[5])
+        got_b = B.bn_act_backward_kernel(*bargs)
+        want_b = B.bn_act_backward_reference(*bargs)
+        for gb, wb in zip(got_b, want_b):
+            check((gb is None) == (wb is None), f"bn_act backward {mode}: "
+                  f"a gradient given on one side only")
+            if gb is not None:
+                diff = maxdiff(gb, wb)
+                err = max(err, diff)
+                check(torch.equal(gb, wb) and gb.dtype == dtype,
+                      f"bn_act backward {mode} {shape} {dtype} offset "
+                      f"{offset}: max |diff| {diff:.3e}")
+        b_ms, b_call = k_ms(lambda: B.bn_act_backward_kernel(*bargs)[0],
+                            B.bn_act_backward_kernel, calls=P_CALLS)
+        b_plain = g_ms(lambda: B.bn_act_backward_reference(*bargs)[0],
+                       calls=P_CALLS)
+        b_bytes = (3 if mode in ("bn_prelu", "bn_add_bn") else 2) * \
+            grad.numel() * elt
+        b_bound = b_bytes / H100_BYTES_PER_S * 1e3
+        if offset == 0 and dtype == torch.bfloat16:
+            per_b[(mode, shape)] = (b_ms, b_call, b_plain, b_bound)
+        print(f"bn_act backward {mode} {shape} {str(dtype)[6:]}"
+              f"{' offset 1' if offset else ''}: exact; kernel {b_ms:.4f} ms "
+              f"(per call from Python {b_call:.4f}), bound {b_bound:.4f} "
+              f"({100 * b_bound / b_ms:.1f} % of it), plain {b_plain:.4f} "
+              f"ms", flush=True)
+        del args, got, want, x, shortcut, grad, bargs, got_b, want_b
+        torch.cuda.empty_cache()
+    tot = [sum(per[c][i] for c in calls) for i in range(5)]
+    tot_b = [sum(per_b[c][i] for c in calls) for i in range(4)]
+    print(f"bn_act backward per r100 forward at batch {P_BATCH} (149 "
+          f"launches): kernel {tot_b[0]:.3f} ms (per call from Python "
+          f"{tot_b[1]:.3f}), bound {tot_b[3]:.3f} "
+          f"({100 * tot_b[3] / tot_b[0]:.1f} % of it), plain "
+          f"{tot_b[2]:.3f} ms", flush=True)
+    nbytes = sum(per[c][3] for c in calls) * H100_BYTES_PER_S / 1e3
+    print(f"bn_act per r100 forward at batch {P_BATCH} (149 launches, "
+          f"{nbytes / 1e9:.2f} GB): kernel {tot[0]:.3f} ms (per call from "
+          f"Python {tot[1]:.3f}), bound {tot[3]:.3f} "
+          f"({100 * tot[3] / tot[0]:.1f} % of it), plain {tot[2]:.3f} ms, "
+          f"library elementwise on the same bytes {tot[4]:.3f} ms "
+          f"({100 * tot[3] / tot[4]:.1f} %) on {smi}", flush=True)
+
+    with torch.no_grad():
+        fused = model(photos)
+        with _arcface_bn_act(_module_chain):
+            chain = model(photos)
+    check(bool(torch.isfinite(fused).all()), "bn_act: r100 forward not finite")
+    diff = maxdiff(fused, chain)
+    err = max(err, diff)
+    check(torch.equal(fused, chain), f"bn_act: r100 forward against the "
+          f"module chain, max |diff| {diff:.3e}")
+
+    def forward_ms(fn) -> float:
+        with torch.no_grad(), _arcface_bn_act(fn):
+            return cuda_ms(lambda: model(photos), iters=5, warmup=2)
+
+    times = {B.bn_act: [], _module_chain: []}
+    for fn in (B.bn_act, _module_chain, _module_chain, B.bn_act):
+        times[fn].append(forward_ms(fn))
+    print("bn_act: r100 forward at batch {} ms (per call from Python, in "
+          "turns): fused {}, module chain {}".format(
+              P_BATCH, [f"{t:.2f}" for t in times[B.bn_act]],
+              [f"{t:.2f}" for t in times[_module_chain]]), flush=True)
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    kernels = {}
+    for side in ("fused", "chain"):
+        log_dir = work / f"bn_act_{side}"
+        fn = B.bn_act if side == "fused" else _module_chain
+        with torch.no_grad(), _arcface_bn_act(fn), \
+                profiling.trace(str(log_dir)) as prof:
+            model(photos)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))]
+        kernels[side] = (len(dev_events), 1e-3 * sum(
+            e.time_range.end - e.time_range.start for e in dev_events))
+        counted = json.loads((log_dir / "counters.json").read_text())
+        want = 149 if side == "fused" else 0
+        check(counted["launches.bn_act"] == want,
+              f"bn_act: counters.json {side} launches.bn_act "
+              f"{counted['launches.bn_act']}, want {want}")
+    print(f"bn_act: one r100 forward, kernels launched and their device ms: "
+          f"fused {kernels['fused'][0]} ({kernels['fused'][1]:.3f} ms), "
+          f"module chain {kernels['chain'][0]} ({kernels['chain'][1]:.3f} "
+          f"ms); counters.json launches.bn_act 149", flush=True)
+
+    x = photos[:P_FGSM]
+    w = torch.randn((P_FGSM, 512), generator=g).to(dev)
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        grads = []
+        for fn in (B.bn_act, _module_chain):
+            xi = x.clone().requires_grad_(True)
+            B.bn_act_backward_kernel.launches = 0
+            with _arcface_bn_act(fn):
+                (model(xi) * w).sum().backward()
+            grads.append(xi.grad)
+            want = 149 if fn is B.bn_act else 0
+            check(B.bn_act_backward_kernel.launches == want,
+                  f"bn_act: {B.bn_act_backward_kernel.launches} backward "
+                  f"launches in one r100 backward, want {want}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det, bench
+    diff = maxdiff(*grads)
+    err = max(err, diff)
+    check(bool(grads[0].abs().sum() > 0) and torch.equal(*grads),
+          f"bn_act: FGSM gradient on {P_FGSM} chips against the module "
+          f"chain, max |diff| {diff:.3e}")
+    print(f"bn_act: r100 forward ({P_BATCH}) and FGSM gradient ({P_FGSM}) "
+          f"bit-equal to the module chain", flush=True)
+
+    # One FGSM step (ops.attack.fgsm_pairs) through r100 and a two-class
+    # head on P_FGSM_PAIRS pairs, the fused op against the module chain,
+    # timed in turns.
+    from alink_tpu_torch.ops.attack import fgsm_pairs
+
+    left = photos[:P_FGSM_PAIRS]
+    right = photos[P_FGSM_PAIRS:2 * P_FGSM_PAIRS]
+    head_w = 0.05 * torch.randn((2, 512), generator=g).to(dev)
+    labels = torch.nn.functional.one_hot(
+        torch.arange(P_FGSM_PAIRS, device=dev) % 2, 2).float()
+
+    def predict(w, lh, rh):
+        d = (model(lh) - model(rh)).abs()
+        return torch.softmax(d @ w.t(), dim=-1)
+
+    def fgsm_ms(fn) -> float:
+        with _arcface_bn_act(fn):
+            return cuda_ms(lambda: fgsm_pairs(predict, head_w, left, right,
+                                              labels), iters=5, warmup=2)
+
+    steps = {B.bn_act: [], _module_chain: []}
+    for fn in (B.bn_act, _module_chain, _module_chain, B.bn_act):
+        steps[fn].append(fgsm_ms(fn))
+    print("bn_act: FGSM step on {} pairs of 112^2 through r100, ms (per "
+          "call from Python, in turns): fused {}, module chain {}".format(
+              P_FGSM_PAIRS, [f"{t:.2f}" for t in steps[B.bn_act]],
+              [f"{t:.2f}" for t in steps[_module_chain]]), flush=True)
+    print(f"bn_act: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"err": err, "ms": tot[0], "call_ms": tot[1], "plain_ms": tot[2],
+            "bound_ms": tot[3], "bound_by": "bytes", "library_ms": tot[4]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3523,6 +3881,9 @@ def main() -> int:
     ingest_counts = phase_ingest(dev, smi)
     torch.cuda.empty_cache()
     stamp("o")
+    numbers["bn_act"] = phase_bn_act(dev, smi)
+    torch.cuda.empty_cache()
+    stamp("p")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
@@ -3541,6 +3902,9 @@ def main() -> int:
                              + rest_counts["pair_score"]
                              + mtp_counts["pair_score"]
                              + par_counts["pair_score"])
+    # bn_act: the r100 forwards of the serving slice (c) and of (k)'s
+    # profiles, 149 each.
+    counts["bn_act"] += rest_counts["bn_act"]
     counts["affine_warp"] += (resume_counts["affine_warp"]
                               + rest_counts["affine_warp"]
                               + par_counts["affine_warp"])
@@ -3552,7 +3916,9 @@ def main() -> int:
                "bottleneck": ("alink_tpu_torch/csrc/bottleneck.cu",
                               "alink_tpu/ops/resblock.py:72"),
                "qconv": ("alink_tpu_torch/csrc/qconv.cu",
-                         "alink_tpu/ops/qconv.py:116")}
+                         "alink_tpu/ops/qconv.py:116"),
+               "bn_act": ("alink_tpu_torch/csrc/bn_act.cu",
+                          "none: XLA fuses BN and PReLU")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],

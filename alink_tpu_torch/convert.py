@@ -22,7 +22,9 @@ dense layer in both packages, so that layer needs no permutation beyond
 the transpose.
 
 ``loop_state_from_jax`` carries a JAX ``ALinkLoop``'s state (student,
-Adadelta state, counters, queue) into a port loop.
+Adadelta state, counters, queue) into a port loop.  ``load_insightface_vit``
+loads insightface's ViT embedder, which has no JAX counterpart, from its
+torch state dict.
 """
 
 from __future__ import annotations
@@ -83,6 +85,33 @@ def load_flax(module: nn.Module, params: Mapping) -> nn.Module:
     SmallRes); every tensor must match by name and shape
     (``load_state_dict(strict=True)`` raises otherwise)."""
     module.load_state_dict(state_dict_from_flax(params), strict=True)
+    return module
+
+
+_VIT_NORM = re.compile(r"(blocks\.\d+\.norm[12]|norm|feature\.[13])\."
+                       r"(weight|bias|running_mean|running_var)")
+_VIT_LEAF = {"weight": "gamma", "bias": "beta", "running_mean": "mean",
+             "running_var": "var"}
+
+
+def load_insightface_vit(module: nn.Module,
+                         state_dict: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Load an insightface ``arcface_torch`` ViT ``state_dict``
+    (``backbones/vit.py``: ``patch_embed.proj.*``, ``pos_embed``,
+    ``blocks.<i>.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}.*``,
+    ``norm.*``, ``feature.{0,1,2,3}.*``) into a ``models.FaceViT``.  The
+    LayerNorm and BatchNorm1d leaves ``weight``/``bias``/``running_mean``/
+    ``running_var`` become ``gamma``/``beta``/``mean``/``var``;
+    ``num_batches_tracked`` and the training-only ``mask_token`` are
+    dropped; every other name is the port's.  Tensors are copied into the
+    module's dtypes; names and shapes must match (``strict=True``)."""
+    out = {}
+    for key, t in state_dict.items():
+        if key == "mask_token" or key.endswith(".num_batches_tracked"):
+            continue
+        m = _VIT_NORM.fullmatch(key)
+        out[f"{m.group(1)}.{_VIT_LEAF[m.group(2)]}" if m else key] = t
+    module.load_state_dict(out, strict=True)
     return module
 
 

@@ -26,7 +26,8 @@ class FaceModel:
     """Batched detect -> align -> embed pipeline.
 
     Args:
-        embedder: an ArcFace module (``(N, 112, 112, 3) -> (N, D)``).
+        embedder: an embedder module, ArcFace or the ViT
+            (``(N, 112, 112, 3) -> (N, D)``).
         cascade_params: MTCNN towers, or None to skip detection (images are
             then pre-cropped faces, resized to ``cfg.output_size``).
         cfg: cascade budgets and thresholds.
@@ -59,18 +60,21 @@ class FaceModel:
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Best-scoring face per image, aligned -> (chips, found).
 
-        ``found`` is False where an image had no valid detection; its chip
-        is zeroed with a ``where`` (not a multiply: a padding landmark row
-        may warp to NaN, and 0 * NaN is NaN).
+        ``found`` is False where an image had no valid detection, and where
+        its best detection cannot be aligned: five coinciding landmarks (a
+        zero-size box) give a similarity of scale 0, whose warp divides by
+        zero.  Such a chip is zeroed with a ``where`` (not a multiply: it
+        may have warped to NaN, and 0 * NaN is NaN).
         """
         det = detect_faces(self.cascade_params, images, self.cfg)
         with span("align"):
             neg = torch.finfo(det.scores.dtype).min
             best = torch.argmax(torch.where(det.valid, det.scores, neg),
                                 dim=1)
-            found = torch.any(det.valid, dim=1)
             lmk = det.landmarks[torch.arange(images.shape[0],
                                              device=images.device), best]
+            found = torch.any(det.valid, dim=1) & (
+                (lmk - lmk[:, :1]).abs().amax(dim=(1, 2)) > 0)
             chips = align_faces(images, lmk[:, None],
                                 self.cfg.output_size)[:, 0]
             return torch.where(found[:, None, None, None], chips, 0.0), found

@@ -12,10 +12,11 @@ from alink_tpu_torch.models.genderage import (GenderAgeHead,
 from alink_tpu_torch.models.mtcnn import LNet, ONet, PNet, RNet
 from alink_tpu_torch.models.resnet import SENet50, VGGFace16, VGGFaceResNet50
 from alink_tpu_torch.models.siamese import SiameseHead, SmallRes, SmallResTower
+from alink_tpu_torch.models.vit import FaceViT, FaceViT_L
 
 __all__ = ["preprocess", "ArcFaceResNet34", "ArcFaceResNet50",
            "ArcFaceResNet100", "ResNet50Classifier", "SENet50Classifier",
            "SmallResClassifier", "VGG16Classifier", "GenderAgeHead",
            "GenderAgeResNet50", "decode_ga", "LNet", "ONet", "PNet", "RNet",
            "SENet50", "VGGFace16", "SiameseHead", "SmallRes", "SmallResTower",
-           "VGGFaceResNet50"]
+           "VGGFaceResNet50", "FaceViT", "FaceViT_L"]

@@ -170,6 +170,32 @@ def test_no_face_chip_is_zero(pair, images):
     assert torch.isfinite(closed.process(images)).all()
 
 
+def test_an_unalignable_face_is_not_found(pair, images, monkeypatch):
+    """A best detection whose five landmarks coincide (a zero-size box,
+    which open thresholds let through) has no similarity onto the template:
+    that image reports not-found and embeds the zero chip, where the warp
+    by a scale-0 similarity gave NaN; the other images are unchanged."""
+    from alink_tpu_torch.detect import face_model
+
+    _, _, fm, _ = pair
+    chips0, found0 = fm.get_input_valid(images)
+    assert found0.all()
+    detect = face_model.detect_faces
+
+    def collapsed(*a, **k):
+        det = detect(*a, **k)
+        lmk = det.landmarks.clone()
+        lmk[0] = torch.tensor([63.0, 110.0])
+        return det._replace(landmarks=lmk)
+
+    monkeypatch.setattr(face_model, "detect_faces", collapsed)
+    chips, found = fm.get_input_valid(images)
+    assert found.tolist() == [False] + [True] * (len(images) - 1)
+    assert torch.count_nonzero(chips[0]) == 0
+    assert torch.equal(chips[1:], chips0[1:])
+    assert torch.isfinite(fm.process(images)).all()
+
+
 def test_no_cascade_resizes_precropped(pair):
     _, _, fm, _ = pair
     plain = FaceModel(fm.embedder)

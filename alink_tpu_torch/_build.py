@@ -61,6 +61,9 @@ _SIGNATURES = {
     # mode, dtype, g, x, dx, dr, rows, c, then as alink_bn_act
     "alink_bn_act_backward": [_I, _I, _P, _P, _P, _P, _I, _I] + [_P] * 4
                              + [_F] + [_P] * 4 + [_F, _P, _P],
+    # q, k, v, out, n, h, t, d, strides (elements) of q, k, v along n, h,
+    # t, scale, grid, stream
+    "alink_attention": [_P] * 4 + [_I] * 13 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -24,9 +24,20 @@ Precision, as insightface runs under fp16 autocast with bf16 for fp16:
 the patch convolution and every Linear of the blocks run in ``dtype``
 (their weights are held in it, so nothing is cast per call); the residual
 stream, every LayerNorm and the attention core run in float32 (the core
-upcasts q, k and v, as insightface does with autocast off); the final LN
-and the feature head run in float32, as ArcFace's fc1.  Drop path,
-dropout and random masking are training-only and absent.
+computes on the float32 values of q, k and v, as insightface does with
+autocast off); the final LN and the feature head run in float32, as
+ArcFace's fc1.  Drop path, dropout and random masking are training-only
+and absent.
+
+The core is ``ops.attention.attention_core``: on the card one launch of a
+hand-written kernel a block, which reads the bf16 q, k and v where the
+qkv product left them and writes the merged heads in float32.  It is
+float32-accurate without an upcast: a product of two bf16 values is exact
+in float32, so S = q k^T runs on bf16 tensor cores with float32 sums, the
+softmax is float32, and the probabilities enter P v split in three bf16
+terms that carry all 24 of their bits.  On the CPU it is the plain
+float32 matmul-softmax-matmul.  The card's kernel takes bf16 q, k, v
+only (``dtype`` bf16); a float32 ViT runs its core on the CPU only.
 
 Departure: the output is L2-normalised (insightface returns the raw
 feature and normalises at evaluation); ``normalize=False`` gives the raw
@@ -35,7 +46,8 @@ feature.  LayerNorm and BatchNorm parameters are named ``gamma``/``beta``
 maps insightface's names.  Tensor and pipeline parallelism
 (``parallel/tp.py``, ``pp.py``) serve ArcFace only.
 
-Spans ``vit.patch``, ``vit.attn`` (the float32 core, once a block),
+Spans ``vit.patch``, ``vit.attn`` (the float32 core, once a block: one
+launch of the kernel on the card, ``launches.attn``),
 ``vit.mlp`` (once a block) and ``vit.head``; counters ``vit.forwards``
 and ``vit.tokens`` (faces x tokens).
 """
@@ -48,6 +60,7 @@ from torch import nn
 
 from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _FrozenBN,
                                            _lecun_normal_)
+from alink_tpu_torch.ops.attention import attention_core
 from alink_tpu_torch.utils.profiling import count, span
 
 LN_EPS = 1e-6
@@ -77,17 +90,16 @@ class LayerNorm(nn.Module):
 
 
 class AttentionCore(nn.Module):
-    """softmax(q k^T d^-1/2) v in float32: q, k, v (N, H, T, d) in any
-    float dtype -> (N, T, H * d) float32, the heads merged.  A module of its
-    own so that forward hooks see its inputs and output."""
+    """softmax(q k^T d^-1/2) v in float32: q, k, v (N, H, T, d) -> (N, T,
+    H * d) float32, the heads merged (``ops.attention.attention_core``:
+    bf16 views of the qkv product on the card, any float dtype on the
+    CPU).  A module of its own so that forward hooks see its inputs and
+    output."""
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
         with span("vit.attn"):
-            n, h, t, d = q.shape
-            out = F.scaled_dot_product_attention(q.float(), k.float(),
-                                                 v.float())
-            return out.transpose(1, 2).reshape(n, t, h * d)
+            return attention_core(q, k, v)
 
 
 class Attention(nn.Module):

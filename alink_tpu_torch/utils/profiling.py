@@ -52,9 +52,11 @@ def count(name: str, n: int = 1) -> None:
 
 def counters() -> dict[str, int]:
     """A snapshot of every counter, with the four kernels' launch counts
-    as ``launches.k1`` to ``launches.k4`` and the fused BN / PReLU / add
+    as ``launches.k1`` to ``launches.k4``, the fused BN / PReLU / add
     kernel's as ``launches.bn_act`` (its backward's as
-    ``launches.bn_act_backward``)."""
+    ``launches.bn_act_backward``) and the ViT attention core's as
+    ``launches.attn``."""
+    from alink_tpu_torch.ops.attention import attention_core_kernel
     from alink_tpu_torch.ops.bn_act import (bn_act_backward_kernel,
                                             bn_act_kernel)
     from alink_tpu_torch.ops.image import affine_warp_batch_kernel
@@ -70,6 +72,7 @@ def counters() -> dict[str, int]:
         out[f"launches.{k}"] = fn.launches
     out["launches.bn_act"] = bn_act_kernel.launches
     out["launches.bn_act_backward"] = bn_act_backward_kernel.launches
+    out["launches.attn"] = attention_core_kernel.launches
     return out
 
 

@@ -205,6 +205,28 @@ p. the fused BN / PReLU / residual add (``ops.bn_act``, ArcFace's three
    (``fgsm_pairs``, 32 pairs) through each, timed in turns.  The kernels
    line counts bn_act's launches in the r100 forwards of (c) and (k)'s
    profiles, each held to 149 a forward.
+q. the ViT attention core (``ops.attention``, ``csrc/attention.cu``):
+   the kernel against ``attention_core_reference`` (float32, TF32 off) on
+   strided views of an (N, T, 3, H, d) bf16 qkv tensor, as the ViT gives
+   them, at ViT-L's (256, 8, 144, 96) and at ragged and wide shapes (T 7
+   to 256, d 16 to 128, a contiguous input), the widest gap over the
+   widest |reference| held under 1e-5; the kernel's registers, shared
+   memory and spills from ``-Xptxas -v``; at ViT-L's shape its device
+   time (``graph_ms``), its time by CUDA events with the L2 flushed
+   before each call, and per call from Python, beside its bytes bound
+   (float32 output) and ``attn_roofline.serve_vit``'s bound (output at 2
+   bytes), the plain version's time and the library's yardstick (float32
+   ``F.scaled_dot_product_attention`` with its three upcasts and the head
+   merge, ``library_ms``); a ViT-L forward (bf16, batch 32) against the
+   same model with the plain core (the cores of blocks 0 and 23
+   teacher-forced, as ``attn_gap`` reads them; the unit embeddings), both
+   forwards at batch 256 timed in turns, ``launches.attn`` 24 a forward
+   in ``counters.json``, no library attention kernel in its trace and its
+   kernel count beside the library core's; the autograd function's
+   gradients of q, k and v bit-equal to plain autograd of the reference,
+   and the FGSM pixel gradient on 4 chips against the plain core's, beside
+   the library core's distance from it.  The kernels line counts the
+   launches of (q)'s ViT-L forwards, each held to 24.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -3805,6 +3827,285 @@ def phase_bn_act(dev, smi: str) -> dict:
             "bound_ms": tot[3], "bound_by": "bytes", "library_ms": tot[4]}
 
 
+Q_BATCH = 256            # faces of serve_vitl_typical's call
+Q_SHAPE = (Q_BATCH, 8, 144, 96)   # ViT-L: (faces, heads, tokens, width)
+Q_DEPTH = 24
+Q_TOL = 1e-5             # attn_gap's limit
+Q_FORWARD = 32           # faces of the held ViT-L forward
+Q_FGSM = 4               # chips under the FGSM gradient check
+
+
+def _qkv_views(shape, g, contiguous: bool = False):
+    """q, k, v (N, H, T, d) bf16 from a generator on the card: the strided
+    views of one (N, T, 3, H, d) tensor that ``Attention.forward``
+    passes, or contiguous copies."""
+    n, h, t, d = shape
+    qkv = torch.randn((n, t, 3 * h * d), generator=g, device=g.device).to(
+        torch.bfloat16).reshape(n, t, 3, h, d).permute(2, 0, 3, 1, 4)
+    views = (qkv[0], qkv[1], qkv[2])
+    return tuple(x.contiguous() for x in views) if contiguous else views
+
+
+def _cold_ms(fn, iters: int = 20) -> float:
+    """Mean ms of one call by CUDA events, 256 MB written between calls so
+    that each starts with nothing of its inputs in the 50-MB L2."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def _ptxas(kernel: str) -> list[str]:
+    """``-Xptxas -v``'s lines (registers, spills) for each instance of
+    ``kernel`` in the build log."""
+    from alink_tpu_torch import _build
+
+    log = _build.BUILD_DIR / "build.log"
+    out, name = [], None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and ("spill" in line or "Used" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def phase_attention(dev, smi: str) -> tuple[int, dict]:
+    """(q) the ViT attention core: ``attention_core_kernel`` against
+    ``attention_core_reference`` at ViT-L's shape and at ragged ones,
+    timed beside its bounds, the plain version and the library's float32
+    attention; a ViT-L forward, its cores and an FGSM gradient against
+    the plain core; ``launches.attn`` a forward."""
+    import torch.nn.functional as F
+
+    import alink_tpu_torch.models.vit as vit
+    from alink_tpu_torch import _build
+    from alink_tpu_torch.models import FaceViT_L
+    from alink_tpu_torch.ops import attention as A
+    from alink_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "attention: the plain version runs in float32, TF32 must be off")
+    _build.load()
+    for line in _ptxas("attention_kernel"):
+        print(f"attention ptxas: {line}", flush=True)
+    gd = torch.Generator(device=dev).manual_seed(SEED + 16)
+    err = 0.0
+    cases = [(Q_SHAPE, False), ((3, 2, 7, 32), False),
+             ((5, 3, 144, 16), False), ((4, 2, 200, 64), False),
+             ((2, 2, 256, 128), False), ((3, 4, 144, 80), False),
+             ((2, 3, 33, 112), False), ((7, 8, 144, 96), True)]
+    for shape, contiguous in cases:
+        q, k, v = _qkv_views(shape, gd, contiguous)
+        got = A.attention_core_kernel(q, k, v)
+        want = A.attention_core_reference(q, k, v)
+        torch.cuda.synchronize()
+        n, h, t, d = shape
+        check(got.dtype == torch.float32 and got.shape == (n, t, h * d)
+              and got.is_contiguous(), f"attention {shape}: output "
+              f"{got.dtype} {tuple(got.shape)}")
+        gap = maxdiff(got, want) / float(want.abs().max())
+        err = max(err, maxdiff(got, want))
+        check(gap <= Q_TOL, f"attention {shape}: gap {gap:.3e} over the "
+              f"widest |reference| (limit {Q_TOL:g})")
+        print(f"attention {shape}{' contiguous' if contiguous else ''}: "
+              f"gap {gap:.3e} of the widest |reference| "
+              f"{float(want.abs().max()):.3f}", flush=True)
+        del q, k, v, got, want
+
+    q, k, v = _qkv_views(Q_SHAPE, gd)
+    n, h, t, d = Q_SHAPE
+    kernel = lambda: A.attention_core_kernel(q, k, v)      # noqa: E731
+    ms, call = kernel_ms(kernel, A.attention_core_kernel)
+    cold = _cold_ms(kernel)
+    plain = graph_ms(lambda: A.attention_core_reference(q, k, v))
+
+    def library_core(q, k, v):
+        # PyTorch's float32 attention with its upcasts and the head merge,
+        # the core before this kernel: a yardstick only.
+        nn, hh, tt, dd = q.shape
+        out = F.scaled_dot_product_attention(q.float(), k.float(), v.float())
+        return out.transpose(1, 2).reshape(nn, tt, hh * dd)
+
+    lib = cuda_ms(lambda: library_core(q, k, v))
+    problems = n * h
+    bytes_f32 = problems * t * d * (3 * 2 + 4)
+    bound = bytes_f32 / H100_BYTES_PER_S * 1e3
+    # attn_roofline.serve_vit's bound: 4 T^2 D a face over TF32's peak, or
+    # q, k, v and the output at 2 bytes.
+    metric_bound = max(problems * 4 * t * t * d / 494.7e12,
+                       problems * 4 * t * d * 2 / H100_BYTES_PER_S) * 1e3
+    flops = problems * 8 * t * t * d
+    print(f"attention {Q_SHAPE}: kernel {ms:.4f} ms (L2 flushed "
+          f"{cold:.4f}, per call from Python {call:.4f}), bytes bound "
+          f"{bound:.4f} ({100 * bound / ms:.1f} % of it, "
+          f"{bytes_f32 / ms / 1e6:.0f} GB/s; "
+          f"{bytes_f32 / 1e6:.1f} MB), attn_roofline's bound "
+          f"{metric_bound:.4f} ({100 * metric_bound / ms:.1f} %), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s of bf16 products, plain "
+          f"{plain:.4f} ms, library float32 attention with its upcasts "
+          f"and merge {lib:.4f} ms (per call from Python) on {smi}",
+          flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(SEED + 16)
+    model = FaceViT_L(generator=g, device=dev).eval().requires_grad_(False)
+    chips = (torch.rand((Q_BATCH, 112, 112, 3), generator=g) * 255).to(dev)
+    real = vit.attention_core
+
+    @contextlib.contextmanager
+    def core(fn):
+        vit.attention_core = fn
+        try:
+            yield
+        finally:
+            vit.attention_core = real
+
+    seen = {}
+
+    def keep(i):
+        def hook(mod, args, out):
+            seen[i] = (tuple(a.detach().clone() for a in args),
+                       out.detach().clone())
+        return hook
+
+    hooks = [model.blocks[i].attn.core.register_forward_hook(keep(i))
+             for i in (0, Q_DEPTH - 1)]
+    before = A.attention_core_kernel.launches
+    with torch.no_grad():
+        emb = model(chips[:Q_FORWARD])
+        for hk in hooks:
+            hk.remove()
+        check(A.attention_core_kernel.launches - before == Q_DEPTH,
+              f"attention: {A.attention_core_kernel.launches - before} "
+              f"launches in one ViT-L forward")
+        with core(A.attention_core_reference):
+            emb_plain = model(chips[:Q_FORWARD])
+    attn_gap = max(maxdiff(out, A.attention_core_reference(*args))
+                   / float(A.attention_core_reference(*args).abs().max())
+                   for args, out in seen.values())
+    embed_gap = float(torch.linalg.vector_norm(emb - emb_plain,
+                                               dim=1).max())
+    check(attn_gap <= Q_TOL, f"attention: ViT-L blocks 0 and 23, gap "
+          f"{attn_gap:.3e}")
+    check(bool(torch.isfinite(emb).all()) and embed_gap <= 0.03,
+          f"attention: ViT-L embeddings {embed_gap:.3e} from the plain "
+          f"core's")
+    print(f"attention: ViT-L forward ({Q_FORWARD} faces): blocks 0 and 23 "
+          f"gap {attn_gap:.3e} (attn_gap's reading), unit embeddings "
+          f"{embed_gap:.3e} from the plain core's", flush=True)
+
+    def forward_ms(fn) -> float:
+        with torch.no_grad(), core(fn):
+            return cuda_ms(lambda: model(chips), iters=5, warmup=2)
+
+    times = {A.attention_core: [], A.attention_core_reference: []}
+    for fn in (A.attention_core, A.attention_core_reference,
+               A.attention_core_reference, A.attention_core):
+        times[fn].append(forward_ms(fn))
+    print("attention: ViT-L forward at batch {} ms (per call from Python, "
+          "in turns): kernel core {}, plain core {}".format(
+              Q_BATCH, [f"{x:.2f}" for x in times[A.attention_core]],
+              [f"{x:.2f}" for x in times[A.attention_core_reference]]),
+          flush=True)
+
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+        "attention"
+    launches = 2 * Q_DEPTH            # the held forward's, the traced one's
+    kernels = {}
+    for side, fn in (("library", library_core), ("kernel", A.attention_core)):
+        with torch.no_grad(), core(fn), \
+                profiling.trace(str(log_dir / side)) as prof:
+            model(chips)
+            torch.cuda.synchronize()
+        kernels[side] = [e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = kernels["kernel"]
+    counted = json.loads((log_dir / "kernel" / "counters.json").read_text())
+    check(counted["launches.attn"] == Q_DEPTH,
+          f"attention: counters.json launches.attn "
+          f"{counted['launches.attn']}, want {Q_DEPTH}")
+    library_kernels = sorted({x for x in names if "fmha" in x
+                              or "flash" in x.lower()})
+    check(not library_kernels, f"attention: library attention kernels in "
+          f"a ViT-L forward: {library_kernels}")
+    ours = sum("attention_kernel" in x for x in names)
+    check(ours == Q_DEPTH, f"attention: {ours} kernel launches in the "
+          f"trace of one forward")
+    print(f"attention: one ViT-L forward ({Q_BATCH}), {len(names)} kernels "
+          f"launched ({len(kernels['library'])} with the library's core), "
+          f"{ours} of them the core's; counters.json launches.attn "
+          f"{Q_DEPTH}; no library attention kernel", flush=True)
+
+    # The backward: the autograd function's gradients at ViT-L's shape
+    # against autograd of the plain core (the same operations on the same
+    # saved q, k, v: bit-equal).
+    n, h, t, d = Q_SHAPE
+    base = torch.randn((Q_FGSM, t, 3 * h * d), generator=gd, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    q, k, v = base.reshape(Q_FGSM, t, 3, h, d).permute(2, 0, 3, 1, 4)
+    up = torch.randn((Q_FGSM, t, h * d), generator=gd, device=dev)
+    got = torch.autograd.grad(A.attention_core(q, k, v), (q, k, v), up)
+    want = torch.autograd.grad(A.attention_core_reference(q, k, v),
+                               (q, k, v), up)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "attention: the autograd function's gradients differ from plain "
+          "autograd of the reference")
+    del base, q, k, v, up, got, want
+
+    # The FGSM pixel gradient through ViT-L: the kernel core's against the
+    # plain core's, beside the library's float32 core (the one the ViT ran
+    # before) against the plain core's: a float32 core that sums in
+    # another order moves the forward's bf16 roundings, and through 24
+    # blocks the gradient, as much.
+    x = chips[:Q_FGSM]
+    w = torch.randn((Q_FGSM, 512), generator=g).to(dev)
+    grads = []
+    for fn in (A.attention_core, A.attention_core_reference, library_core):
+        xi = x.clone().requires_grad_(True)
+        before = A.attention_core_kernel.launches
+        with core(fn):
+            (model(xi) * w).sum().backward()
+        want = Q_DEPTH if fn is A.attention_core else 0
+        check(A.attention_core_kernel.launches - before == want,
+              f"attention: {A.attention_core_kernel.launches - before} "
+              f"launches in one FGSM forward, want {want}")
+        launches += want
+        grads.append(xi.grad)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    kernel_rel, control_rel = rel(grads[0], grads[1]), rel(grads[2], grads[1])
+    check(bool(torch.isfinite(grads[0]).all()) and
+          float(grads[0].abs().max()) > 0 and
+          kernel_rel <= 2 * control_rel + 1e-3,
+          f"attention: FGSM gradient on {Q_FGSM} chips, relative L2 "
+          f"{kernel_rel:.3e} from the plain core's (the library core's "
+          f"{control_rel:.3e})")
+    print(f"attention: gradients of q, k, v bit-equal to the plain core's "
+          f"autograd; FGSM gradient ({Q_FGSM} chips) relative L2 "
+          f"{kernel_rel:.3e} from the plain core's, the library's float32 "
+          f"core {control_rel:.3e} from it", flush=True)
+    print(f"attention: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, {"err": err, "ms": ms, "call_ms": call,
+                      "plain_ms": plain, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3884,6 +4185,9 @@ def main() -> int:
     numbers["bn_act"] = phase_bn_act(dev, smi)
     torch.cuda.empty_cache()
     stamp("p")
+    counts["attention"], numbers["attention"] = phase_attention(dev, smi)
+    torch.cuda.empty_cache()
+    stamp("q")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
@@ -3918,7 +4222,9 @@ def main() -> int:
                "qconv": ("alink_tpu_torch/csrc/qconv.cu",
                          "alink_tpu/ops/qconv.py:116"),
                "bn_act": ("alink_tpu_torch/csrc/bn_act.cu",
-                          "none: XLA fuses BN and PReLU")}
+                          "none: XLA fuses BN and PReLU"),
+               "attention": ("alink_tpu_torch/csrc/attention.cu",
+                             "none: the JAX package has no ViT")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],

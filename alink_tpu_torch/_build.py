@@ -10,6 +10,11 @@ stream cross as ``c_void_p``, every int as ``c_int``, every float as
 launch; ``check`` raises on a non-zero status, because a refused launch
 never runs and a later synchronise would not report it.
 
+``launch`` is the one place the ops call the library: it passes the
+device's current stream, raises through ``check``, and counts each
+launch that succeeded under the entry's counter in ``_SIGNATURES``
+(``launch_counts``, read by ``utils.profiling.counters``).
+
 Host libraries (C++ with no CUDA, such as the JAX package's batched image
 decoder ``native/loader.cc``) are built the same way by ``build_host``, with
 ``g++`` instead of ``nvcc``, into the same directory.
@@ -29,6 +34,8 @@ import threading
 from pathlib import Path
 from typing import Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "alink_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,34 +44,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# Each C entry point: its launch counter and its argument types (the
+# stream last).
 _SIGNATURES = {
     # img, dtype (0 f32, 1 uint8, 2 bf16), M (forward affines), out, n, h,
     # w, c, oh, ow,
     # border_nearest, interp_nearest, stream
-    "alink_affine_warp": [_P, _I, _P, _P] + [_I] * 8 + [_P],
+    "alink_affine_warp": ("launches.k2", [_P, _I, _P, _P] + [_I] * 8 + [_P]),
     # x, n, h, w, cin, cm, cout, w1, s1, b1, w3, s2, b2, w2, s3, b3, wp, sp,
     # bp, out, act (global y1/y2 scratch or null), slots, split, blocks,
     # stream
-    "alink_bottleneck": [_P] + [_I] * 6 + [_P] * 14 + [_I] * 3 + [_P],
+    "alink_bottleneck": ("launches.k3", [_P] + [_I] * 6 + [_P] * 14
+                         + [_I] * 3 + [_P]),
     # rows, cols, n, m, d, w1, b1, h1p, w2, b2, h2p, wo, bo, out, np1,
     # stages, grid, group, mode, stream
-    "alink_pair_score": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P,
-                         _P, _I, _I, _I, _I, _I, _P],
+    "alink_pair_score": ("launches.k1", [_P, _P, _I, _I, _I, _P, _P, _I, _P,
+                                         _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P]),
     # x, x_rows, ldx, cin_k, wk, cout_k, scale, bias, alpha, qscale, out,
     # ldo, mode, n, h, w, wp, r, lead, stages, resident, box_rows, nbox,
     # grid_x, stream
-    "alink_qconv": [_P, _I, _I, _I, _P, _I] + [_P] * 5 + [_I] * 13 + [_P],
+    "alink_qconv": ("launches.k4", [_P, _I, _I, _I, _P, _I] + [_P] * 5
+                    + [_I] * 13 + [_P]),
     # mode, dtype, x, r, out, rows, c, gamma, beta, mean, var, eps, gamma2,
     # beta2, mean2, var2, eps2, alpha, stream
-    "alink_bn_act": [_I, _I, _P, _P, _P, _I, _I] + [_P] * 4 + [_F]
-                    + [_P] * 4 + [_F, _P, _P],
+    "alink_bn_act": ("launches.bn_act", [_I, _I, _P, _P, _P, _I, _I]
+                     + [_P] * 4 + [_F] + [_P] * 4 + [_F, _P, _P]),
     # mode, dtype, g, x, dx, dr, rows, c, then as alink_bn_act
-    "alink_bn_act_backward": [_I, _I, _P, _P, _P, _P, _I, _I] + [_P] * 4
-                             + [_F] + [_P] * 4 + [_F, _P, _P],
+    "alink_bn_act_backward": ("launches.bn_act_backward",
+                              [_I, _I, _P, _P, _P, _P, _I, _I] + [_P] * 4
+                              + [_F] + [_P] * 4 + [_F, _P, _P]),
     # q, k, v, out, n, h, t, d, strides (elements) of q, k, v along n, h,
     # t, scale, grid, stream
-    "alink_attention": [_P] * 4 + [_I] * 13 + [_F, _I, _P],
+    "alink_attention": ("launches.attn", [_P] * 4 + [_I] * 13 + [_F, _I, _P]),
 }
+_LAUNCHES = {counter: 0 for counter, _ in _SIGNATURES.values()}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -170,10 +184,12 @@ def build_host(name: str, sources: Sequence[Path], flags: Sequence[str],
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, (_, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = _I
@@ -188,3 +204,19 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = load().alink_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({status}: {msg})")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and, last, the
+    current CUDA stream of ``device``, with ``device`` current; raise
+    through ``check`` on a non-zero status, else count one launch."""
+    fn = getattr(load(), entry)
+    with torch.cuda.device(device):
+        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(status, entry)
+    _LAUNCHES[_SIGNATURES[entry][0]] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """The launches made so far, by counter (every one, from 0)."""
+    return dict(_LAUNCHES)

@@ -31,7 +31,7 @@ from torch import nn
 
 from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _conv, _FrozenBN,
                                            _make_conv, _make_dense)
-from alink_tpu_torch.ops.bn_act import bn_act
+from alink_tpu_torch.ops.bn_act import bn_act, prelu
 
 
 class _PReLU(nn.Module):
@@ -44,10 +44,7 @@ class _PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full((channels,), 0.25, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        alpha = self.alpha.to(self.dtype).reshape(shape)
-        x = x.to(self.dtype)
-        return torch.where(x >= 0, x, alpha * x)
+        return prelu(x, self.alpha, self.dtype)
 
 
 class _IRUnit(nn.Module):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alink_tpu_torch.ops.bn_act import bn_params, frozen_bn
 from alink_tpu_torch.ops.resblock import (BottleneckWeights, bottleneck_chain,
                                           kernel_weights)
 
@@ -63,12 +64,7 @@ class _FrozenBN(nn.Module):
                 self.register_buffer(name, t)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        root = torch.sqrt(self.var + self.eps)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        scale = (self.gamma / root).to(self.dtype).reshape(shape)
-        shift = (self.beta - self.mean * self.gamma / root).to(
-            self.dtype).reshape(shape)
-        return x.to(self.dtype) * scale + shift
+        return frozen_bn(x, bn_params(self), self.dtype)
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int,

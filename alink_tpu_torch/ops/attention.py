@@ -80,15 +80,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor,
     n, h, t, d = q.shape
     out = torch.empty((n, t, h * d), dtype=torch.float32, device=q.device)
     if n:
-        lib = _build.load()
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            status = lib.alink_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n,
-                h, t, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                d ** -0.5, min(n * h, sms), stream)
-        _build.check(status, "alink_attention")
+        _build.launch("alink_attention", q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), n, h, t, d,
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                      d ** -0.5, min(n * h, sms))
     return out
 
 
@@ -107,8 +103,7 @@ def attention_core_kernel(q: torch.Tensor, k: torch.Tensor,
     ``check_inputs`` describes (views of the qkv product are taken as they
     are, nothing is copied) -> (N, T, H * d) float32, contiguous, through
     the op ``torch.ops.alink_tpu_torch.attention_core``.  Raises on
-    anything else; ``attention_core_kernel.launches`` counts the
-    launches."""
+    anything else."""
     check_inputs(q, k, v)
     if not q.is_cuda:
         raise ValueError(f"attention_core_kernel needs CUDA tensors, got "
@@ -116,12 +111,7 @@ def attention_core_kernel(q: torch.Tensor, k: torch.Tensor,
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("attention core kernel: q, k and v must start on "
                          "16-byte boundaries")
-    out = torch.ops.alink_tpu_torch.attention_core(q, k, v)
-    attention_core_kernel.launches += 1
-    return out
-
-
-attention_core_kernel.launches = 0
+    return torch.ops.alink_tpu_torch.attention_core(q, k, v)
 
 
 def _forward(q, k, v):

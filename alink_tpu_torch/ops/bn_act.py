@@ -54,10 +54,11 @@ def bn_params(bn) -> BNParams:
     return BNParams(bn.gamma, bn.beta, bn.mean, bn.var, bn.eps)
 
 
-def _scale_shift(bn: BNParams, dtype: torch.dtype,
-                 dims: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_FrozenBN``'s scale and shift in ``dtype``, shaped to broadcast
-    over channel axis 1 of a ``dims``-D activation."""
+def scale_shift(bn: BNParams, dtype: torch.dtype,
+                dims: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A frozen BN's scale and shift, formed from its f32 statistics and
+    rounded to ``dtype``, shaped to broadcast over channel axis 1 of a
+    ``dims``-D activation."""
     root = torch.sqrt(bn.var + bn.eps)
     shape = (1, -1) + (1,) * (dims - 2)
     scale = (bn.gamma / root).to(dtype).reshape(shape)
@@ -65,10 +66,21 @@ def _scale_shift(bn: BNParams, dtype: torch.dtype,
     return scale, shift
 
 
-def _frozen_bn(x: torch.Tensor, bn: BNParams,
-               dtype: torch.dtype) -> torch.Tensor:
-    scale, shift = _scale_shift(bn, dtype, x.dim())
+def frozen_bn(x: torch.Tensor, bn: BNParams,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The frozen BN on channel axis 1 in ``dtype`` (``_FrozenBN``'s
+    forward): ``x * scale + shift``."""
+    scale, shift = scale_shift(bn, dtype, x.dim())
     return x.to(dtype) * scale + shift
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """The channel-wise PReLU on axis 1 in ``dtype`` (``_PReLU``'s
+    forward), the slope rounded to ``dtype``."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    x = x.to(dtype)
+    return torch.where(x >= 0, x, alpha.to(dtype).reshape(shape) * x)
 
 
 def bn_act_reference(x: torch.Tensor, bn: BNParams, dtype: torch.dtype,
@@ -77,13 +89,12 @@ def bn_act_reference(x: torch.Tensor, bn: BNParams, dtype: torch.dtype,
                      shortcut_bn: BNParams | None = None) -> torch.Tensor:
     """``bn``, ``bn_prelu`` (``alpha`` given) or ``bn_add`` (``shortcut``
     given) in plain PyTorch, as ``_FrozenBN``, ``_PReLU`` and ``+`` run."""
-    y = _frozen_bn(x, bn, dtype)
+    y = frozen_bn(x, bn, dtype)
     if alpha is not None:
-        shape = (1, -1) + (1,) * (y.dim() - 2)
-        return torch.where(y >= 0, y, alpha.to(dtype).reshape(shape) * y)
+        return prelu(y, alpha, dtype)
     if shortcut is not None:
         shortcut = (shortcut.to(dtype) if shortcut_bn is None
-                    else _frozen_bn(shortcut, shortcut_bn, dtype))
+                    else frozen_bn(shortcut, shortcut_bn, dtype))
         return y + shortcut
     return y
 
@@ -100,16 +111,16 @@ def bn_act_backward_reference(
     is read only for that mask), and ``grad`` or ``grad * scale'`` for the
     shortcut.  (Autograd's sum of the PReLU's two branches can differ from
     the ``where`` in the sign of a zero only.)"""
-    scale, _ = _scale_shift(bn, dtype, grad.dim())
+    scale, _ = scale_shift(bn, dtype, grad.dim())
     g = grad
     if alpha is not None:
-        y = _frozen_bn(x, bn, dtype)
+        y = frozen_bn(x, bn, dtype)
         g = torch.where(y >= 0, grad,
                         grad * alpha.to(dtype).reshape(scale.shape))
     dr = None
     if shortcut:
         dr = (grad if shortcut_bn is None
-              else grad * _scale_shift(shortcut_bn, dtype, grad.dim())[0])
+              else grad * scale_shift(shortcut_bn, dtype, grad.dim())[0])
     return g * scale, dr
 
 
@@ -178,14 +189,9 @@ def _launch(entry: str, mode: str, dtype: torch.dtype, acts: list,
         q = [vec(t, f"shortcut_bn.{k}") for k, t in
              zip(names, shortcut_bn[:4])]
         eps2 = shortcut_bn.eps
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = getattr(lib, entry)(
-            _MODES[mode], _DTYPES[dtype],
-            *(None if t is None else t.data_ptr() for t in acts), n * h * w,
-            c, *p, bn.eps, *q, eps2, vec(alpha, "alpha"), stream)
-    _build.check(status, entry)
+    _build.launch(entry, dev, _MODES[mode], _DTYPES[dtype],
+                  *(None if t is None else t.data_ptr() for t in acts),
+                  n * h * w, c, *p, bn.eps, *q, eps2, vec(alpha, "alpha"))
 
 
 def bn_act_kernel(x: torch.Tensor, bn: BNParams, dtype: torch.dtype,
@@ -195,7 +201,7 @@ def bn_act_kernel(x: torch.Tensor, bn: BNParams, dtype: torch.dtype,
     """Launch ``csrc/bn_act.cu`` on channels-last CUDA activations in
     ``dtype`` (bf16 or f32; other input types are cast first, as the
     plain version casts them) with f32 statistics; raises on anything
-    else.  ``bn_act_kernel.launches`` counts the launches."""
+    else."""
     if alpha is not None and shortcut is not None:
         raise ValueError("bn_act: a PReLU or a shortcut, not both")
     if shortcut is None and shortcut_bn is not None:
@@ -208,11 +214,7 @@ def bn_act_kernel(x: torch.Tensor, bn: BNParams, dtype: torch.dtype,
     out = torch.empty_like(x)
     _launch("alink_bn_act", mode, dtype, [x, shortcut, out], x, bn,
             shortcut_bn, alpha)
-    bn_act_kernel.launches += 1
     return out
-
-
-bn_act_kernel.launches = 0
 
 
 def bn_act_backward_kernel(
@@ -225,8 +227,7 @@ def bn_act_backward_kernel(
     channels-last in ``dtype`` where autograd gives it otherwise) and, for
     the PReLU, ``x`` in; the gradients of ``x`` and of the shortcut out
     (``grad`` itself for a shortcut without BN).  Raises as
-    ``bn_act_kernel`` does; ``bn_act_backward_kernel.launches`` counts
-    the launches."""
+    ``bn_act_kernel`` does."""
     if alpha is not None and shortcut:
         raise ValueError("bn_act: a PReLU or a shortcut, not both")
     if not shortcut and shortcut_bn is not None:
@@ -242,11 +243,7 @@ def bn_act_backward_kernel(
     dr = torch.empty_like(grad) if mode == "bn_add_bn" else None
     _launch("alink_bn_act_backward", mode, dtype, [grad, x, dx, dr], grad,
             bn, shortcut_bn, alpha)
-    bn_act_backward_kernel.launches += 1
     return dx, (grad if mode == "bn_add" else dr)
-
-
-bn_act_backward_kernel.launches = 0
 
 
 def _forward(x, bn, dtype, alpha, shortcut, shortcut_bn):
@@ -361,10 +358,10 @@ def _vector_grads(grad, t: _Inputs, need: _Inputs, bn: BNParams,
             small_grads.append(g.sum_to_size(v.shape))
 
     with torch.enable_grad():
-        scale, shift = _scale_shift(leaves.bn(bn.eps), dtype, dims)
+        scale, shift = scale_shift(leaves.bn(bn.eps), dtype, dims)
         if bn2 is not None:
-            scale2, shift2 = _scale_shift(leaves.shortcut_bn(bn2.eps), dtype,
-                                          dims)
+            scale2, shift2 = scale_shift(leaves.shortcut_bn(bn2.eps), dtype,
+                                         dims)
         if t.alpha is not None:
             alpha = leaves.alpha.to(dtype).reshape(scale.shape)
     g = grad

@@ -141,7 +141,6 @@ def affine_warp_batch_kernel(
     The kernel inverts the forward affines itself (rounded as
     ``_warp_params`` rounds them), so a call launches nothing else when
     ``imgs`` is contiguous and ``Ms`` is contiguous f32 on its device.
-    ``affine_warp_batch_kernel.launches`` counts the launches.
     """
     if not imgs.is_cuda:
         raise ValueError("affine_warp_batch_kernel needs a CUDA tensor")
@@ -159,19 +158,11 @@ def affine_warp_batch_kernel(
     imgs = imgs.contiguous()
     Ms = Ms.to(dev, torch.float32).contiguous()
     out = torch.empty((n, oh, ow, c), dtype=imgs.dtype, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.alink_affine_warp(
-            imgs.data_ptr(), _WARP_DTYPES[imgs.dtype], Ms.data_ptr(),
-            out.data_ptr(), n, h, w, c, oh, ow, int(border == "nearest"),
-            int(interp == "nearest"), stream)
-    affine_warp_batch_kernel.launches += 1
-    _build.check(status, "affine_warp")
+    _build.launch("alink_affine_warp", dev, imgs.data_ptr(),
+                  _WARP_DTYPES[imgs.dtype], Ms.data_ptr(), out.data_ptr(), n,
+                  h, w, c, oh, ow, int(border == "nearest"),
+                  int(interp == "nearest"))
     return out
-
-
-affine_warp_batch_kernel.launches = 0
 
 
 def affine_warp_batch(

@@ -319,7 +319,6 @@ def score_matrix_kernel(head, rows: torch.Tensor,
     wide in H2 is one launch, a wider one a launch per chunk of 256
     (``head_chunks``; the chunks' logit differences sum in the output).
     The head's weights are packed once and cached on it (``packed_head``).
-    ``score_matrix_kernel.launches`` counts the launches.
     """
     if not (rows.is_cuda and cols.is_cuda):
         raise ValueError("score_matrix_kernel needs CUDA tensors")
@@ -338,23 +337,15 @@ def score_matrix_kernel(head, rows: torch.Tensor,
                   for t in (rows, cols))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
-    lib = _build.load()
     for k, pk in enumerate(chunks):
         plan = launch_plan(n, m, d4, pk.h1, pk.h2, sms)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            status = lib.alink_pair_score(
-                rows.data_ptr(), cols.data_ptr(), n, m, d4, pk.w1.data_ptr(),
-                pk.b1.data_ptr(), plan.h1p, pk.w2.data_ptr(),
-                pk.b2.data_ptr(), plan.h2p, pk.wo.data_ptr(),
-                pk.bo.data_ptr(), out.data_ptr(), plan.np1, plan.stages,
-                plan.grid, plan.group, chunk_mode(k, len(chunks)), stream)
-        score_matrix_kernel.launches += 1
-        _build.check(status, "pair_score")
+        _build.launch(
+            "alink_pair_score", dev, rows.data_ptr(), cols.data_ptr(), n, m,
+            d4, pk.w1.data_ptr(), pk.b1.data_ptr(), plan.h1p,
+            pk.w2.data_ptr(), pk.b2.data_ptr(), plan.h2p, pk.wo.data_ptr(),
+            pk.bo.data_ptr(), out.data_ptr(), plan.np1, plan.stages,
+            plan.grid, plan.group, chunk_mode(k, len(chunks)))
     return out
-
-
-score_matrix_kernel.launches = 0
 
 
 def score_matrix(head, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

@@ -367,8 +367,7 @@ def conv3x3_s1_int8_flat_kernel(xf: torch.Tensor, packed: QConvWeights,
     """Launch ``csrc/qconv.cu`` on CUDA flat rows ``xf`` (>= cin_k int8
     columns, row width a multiple of 16; columns past Cin meet zero weights)
     with weights from ``pack_conv`` on the same device; the same result as
-    the plain version.  ``conv3x3_s1_int8_flat_kernel.launches`` counts the
-    launches."""
+    the plain version."""
     if not isinstance(xf, torch.Tensor) or not xf.is_cuda:
         raise ValueError("conv3x3_s1_int8_flat_kernel needs a CUDA tensor")
     if epilogue not in _EPILOGUES:
@@ -395,21 +394,12 @@ def conv3x3_s1_int8_flat_kernel(xf: torch.Tensor, packed: QConvWeights,
     else:
         code, dt = _OUT_CODES[out_dtype], out_dtype
     out = torch.empty((rows, ldo), dtype=dt, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.alink_qconv(
-            xf.data_ptr(), xf.shape[0], xf.shape[1], cin_k,
-            packed.w.data_ptr(), cout_k,
-            *(v.data_ptr() for v in packed[1:5]), out.data_ptr(), ldo, code,
-            lo.n, lo.h, lo.w, lo.wp, lo.r, lo.lead, plan.stages,
-            int(plan.resident), plan.box_rows, plan.nbox, plan.grid, stream)
-    conv3x3_s1_int8_flat_kernel.launches += 1
-    _build.check(status, "qconv")
+    _build.launch(
+        "alink_qconv", dev, xf.data_ptr(), xf.shape[0], xf.shape[1], cin_k,
+        packed.w.data_ptr(), cout_k, *(v.data_ptr() for v in packed[1:5]),
+        out.data_ptr(), ldo, code, lo.n, lo.h, lo.w, lo.wp, lo.r, lo.lead,
+        plan.stages, int(plan.resident), plan.box_rows, plan.nbox, plan.grid)
     return out
-
-
-conv3x3_s1_int8_flat_kernel.launches = 0
 
 
 def conv3x3_s1_int8_flat(

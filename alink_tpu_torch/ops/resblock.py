@@ -424,7 +424,6 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     512); C is Cin, or Cin's padded width with zeros in the pad channels (a
     padded output of this function).  The output is
     (N, H, W, Cout) bf16, or (N, H, W, padded Cout) with ``keep_padded``.
-    ``bottleneck_s1_kernel.launches`` counts the launches.
     """
     n, h, w, c = x.shape
     cin, cm = wts.w1.shape
@@ -457,22 +456,13 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     ptrs = [None if t is None else t.data_ptr() for t in
             (pk.w1, v.s1, v.b1, pk.w3, v.s2, v.b2, pk.w2, v.s3, v.b3, pk.wp,
              v.sp, v.bp)]
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.alink_bottleneck(x.data_ptr(), n, h, w, cin_p, cm_p,
-                                      cout_p, *ptrs, out.data_ptr(),
-                                      None if act is None else act.data_ptr(),
-                                      plan.slots, plan.split, plan.blocks,
-                                      stream)
-    bottleneck_s1_kernel.launches += 1
-    _build.check(status, "bottleneck")
+    _build.launch("alink_bottleneck", dev, x.data_ptr(), n, h, w, cin_p, cm_p,
+                  cout_p, *ptrs, out.data_ptr(),
+                  None if act is None else act.data_ptr(), plan.slots,
+                  plan.split, plan.blocks)
     if keep_padded or cout_p == cout:
         return out
     return out[..., :cout].contiguous()
-
-
-bottleneck_s1_kernel.launches = 0
 
 
 def bottleneck_chain_reference(x: torch.Tensor,

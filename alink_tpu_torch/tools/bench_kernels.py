@@ -96,20 +96,25 @@ def _same(got: torch.Tensor, want: torch.Tensor, exact: bool) -> bool:
         (got - want).abs().max()) <= 1e-2 * float(want.abs().max())
 
 
-def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True,
-             per_call: int = 1) -> float:
+def graph_ms(fn, calls: int = 20, counter: str | None = None,
+             exact: bool = True, per_call: int = 1) -> float:
     """Device milliseconds per call: ``calls`` calls of ``fn`` (which returns
     a tensor) captured in one CUDA graph and replayed back to back
     (``cuda_ms`` around the replay), so that the host's work per call (the
     wrapper's checks, the ctypes launch) is not timed, only the kernels and
     the gaps between them.
 
-    Raises unless the graph runs the work: ``counter`` (a kernel wrapper,
-    whose ``launches`` counts its launches) must rise by ``per_call`` x
-    ``calls`` during the capture (``per_call``: the launches of one call,
-    e.g. a chain of blocks or a head in H2 chunks), and one replay must rewrite the last call's output, filled
-    with a sentinel first, to what an eager call gives (bit-equal when
-    ``exact``, else within 1e-2 of its largest magnitude)."""
+    Raises unless the graph runs the work: the launch counter ``counter``
+    of ``utils.profiling.counters`` (e.g. ``"launches.k3"``) must rise by
+    ``per_call`` x ``calls`` during the capture (``per_call``: the
+    launches of one call, e.g. a chain of blocks or a head in H2 chunks),
+    and one replay must rewrite the last call's output, filled with a
+    sentinel first, to what an eager call gives (bit-equal when ``exact``,
+    else within 1e-2 of its largest magnitude).  ``counters()`` is read
+    before and after the capture: the trees ``--compare`` runs this file
+    on may lack ``profiling.counting``."""
+    from alink_tpu_torch.utils.profiling import counters
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -119,14 +124,15 @@ def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True,
     torch.cuda.synchronize()
     want = want.clone()
     graph = torch.cuda.CUDAGraph()
-    before = None if counter is None else counter.launches
+    before = counters()
     with torch.cuda.graph(graph):
         for _ in range(calls):
             got = fn()
-    if counter is not None and counter.launches - before != per_call * calls:
-        raise RuntimeError(f"graph_ms: {counter.__name__} launched "
-                           f"{counter.launches - before} times in a capture "
-                           f"of {calls} calls of {per_call}")
+    if counter is not None:
+        launched = counters()[counter] - before[counter]
+        if launched != per_call * calls:
+            raise RuntimeError(f"graph_ms: {counter} rose by {launched} in "
+                               f"a capture of {calls} calls of {per_call}")
     got.fill_(float("nan") if got.is_floating_point() else 77)
     graph.replay()
     torch.cuda.synchronize()
@@ -138,17 +144,18 @@ def graph_ms(fn, calls: int = 20, counter=None, exact: bool = True,
     return ms
 
 
-def kernel_ms(fn, counter, calls: int = 20,
+def kernel_ms(fn, counter: str, calls: int = 20,
               per_call: int = 1) -> tuple[float, float]:
     """(device ms per call, ``graph_ms`` over ``calls`` captured calls; ms
-    per call from Python, ``cuda_ms``) of a kernel wrapper's call ``fn``.
+    per call from Python, ``cuda_ms``) of a kernel wrapper's call ``fn``
+    that launches the kernel of launch counter ``counter``.
     Raises where the device time is below a hundredth of the time per call
     from Python, which no kernel launched from Python reaches: a capture
     that timed nothing."""
     ms = graph_ms(fn, calls=calls, counter=counter, per_call=per_call)
     call = cuda_ms(fn, iters=calls, warmup=min(3, calls))
     if ms * 100 < call:
-        raise RuntimeError(f"kernel_ms: {counter.__name__} {ms:.6f} ms on the "
+        raise RuntimeError(f"kernel_ms: {counter} {ms:.6f} ms on the "
                            f"device against {call:.4f} ms per call")
     return ms, call
 
@@ -168,7 +175,7 @@ def bench_k1(dev, dfw: bool = False) -> dict:
         head = SiameseHead(d, K1_HEAD, generator=g, device=dev)
         left = torch.randn((n, d), generator=g).to(dev)
         right = torch.randn((m, d), generator=g).to(dev)
-        ms, call = kernel_ms(lambda: k1(head, left, right), k1,
+        ms, call = kernel_ms(lambda: k1(head, left, right), "launches.k1",
                              calls=1 if (n, m, d) == K1_DFW else 20)
         ops = 2.0 * n * m * (d * K1_HEAD[0] + K1_HEAD[0] * K1_HEAD[1])
         print(f"K1 {n}x{m}x{d} head {K1_HEAD}: kernel {ms:.4f} ms "
@@ -206,7 +213,7 @@ def bench_k2(dev) -> dict:
 
     imgs, Ms, size = k2_case(dev)
     k2 = image.affine_warp_batch_kernel
-    ms, call = kernel_ms(lambda: k2(imgs, Ms, size), k2)
+    ms, call = kernel_ms(lambda: k2(imgs, Ms, size), "launches.k2")
     n, side, c, chip = K2_SHAPE
     print(f"K2 {n}x{side}x{side}x{c} -> {chip}x{chip} f32: kernel {ms:.4f} ms "
           f"({call:.4f} per call from Python)", flush=True)
@@ -338,8 +345,7 @@ def bench_k3(dev, batches=K3_BATCHES, g=None) -> dict:
             x = torch.relu(torch.randn((batch, hw, hw, cin), generator=gd,
                                        device=dev)).to(torch.bfloat16)
             ms, call = kernel_ms(
-                lambda: resblock.bottleneck_s1_kernel(x, kw),
-                resblock.bottleneck_s1_kernel)
+                lambda: resblock.bottleneck_s1_kernel(x, kw), "launches.k3")
             ref = graph_ms(lambda f=unfused_block(wts, dev): f(x),
                            exact=False)
             name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
@@ -397,7 +403,7 @@ def bench_k4(dev, g=None) -> dict:
     for hw, cin, cout in K4_SHAPES:
         x, w, scale, bias, alpha, qs, lo = k4_case(hw, cin, cout, g, dev)
         ms, call = kernel_ms(k4_launch(x, w, scale, bias, alpha, qs, lo),
-                             qconv.conv3x3_s1_int8_flat_kernel)
+                             "launches.k4")
         op = cuda_ms(lambda: qconv.conv3x3_s1_int8(x, w, scale, bias))
         xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)

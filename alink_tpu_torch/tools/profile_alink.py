@@ -76,16 +76,14 @@ def a2_breakdown(predict, params, left: torch.Tensor, right: torch.Tensor,
     from torch.profiler import ProfilerActivity, profile
 
     from alink_tpu_torch.ops import attack
-    from alink_tpu_torch.ops.resblock import bottleneck_s1_kernel as k3
-    from alink_tpu_torch.utils.profiling import SPAN_PREFIX, counters
+    from alink_tpu_torch.utils.profiling import SPAN_PREFIX, counting
 
     dev = left.device
     attack.fgsm_pairs(predict, params, left, right, labels)
     out: dict[str, float] = {}
-    k3.launches = 0
-    before = counters().get("de.generations", 0)
     _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with counting() as de, \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         with torch.no_grad():
             attack.one_pixel_attack_pairs(
@@ -93,7 +91,6 @@ def a2_breakdown(predict, params, left: torch.Tensor, right: torch.Tensor,
                 labels[:de_pairs], g, maxiter=maxiter, **de_kw)
         _sync(dev)
         t1 = time.perf_counter()
-    generations = counters()["de.generations"] - before
     spans = {"de.init": [], "de.generation": []}
     for e in sorted(prof.events(), key=lambda e: e.time_range.start):
         name = e.name[len(SPAN_PREFIX):]
@@ -101,17 +98,18 @@ def a2_breakdown(predict, params, left: torch.Tensor, right: torch.Tensor,
             spans[name].append(
                 (e.time_range.end - e.time_range.start) * 1e-6)
     out.update(de_pairs=de_pairs, de_s=t1 - t0,
-               de_init_s=spans["de.init"][0], de_generations=generations,
+               de_init_s=spans["de.init"][0],
+               de_generations=de["de.generations"],
                de_s_per_generation=spans["de.generation"],
-               de_k3_launches=k3.launches)
-    k3.launches = 0
+               de_k3_launches=de["launches.k3"])
     _sync(dev)
-    t0 = time.perf_counter()
-    attack.fgsm_pairs(predict, params, left, right, labels)
-    _sync(dev)
-    out.update(fgsm_pairs=left.shape[0],
-               fgsm_ms=(time.perf_counter() - t0) * 1e3,
-               fgsm_k3_launches=k3.launches)
+    with counting() as fgsm:
+        t0 = time.perf_counter()
+        attack.fgsm_pairs(predict, params, left, right, labels)
+        _sync(dev)
+        t1 = time.perf_counter()
+    out.update(fgsm_pairs=left.shape[0], fgsm_ms=(t1 - t0) * 1e3,
+               fgsm_k3_launches=fgsm["launches.k3"])
     return out
 
 

@@ -11,8 +11,9 @@ in Perfetto or ``chrome://tracing``, and the counts made while it was open.
 profiler's clock, nested under the span that opened it; it records only
 while a profiler records, and otherwise costs one check of the profiler's
 flag.  ``count(name, n)`` adds a host integer to a process-wide registry
-that ``counters()`` reads, with the kernels' launch counts beside it.
-Nothing here reads the device.
+that ``counters()`` reads, with the kernels' launch counts beside it
+(``_build.launch`` makes them); ``counting()`` gives the counts made
+inside a ``with`` block.  Nothing here reads the device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import time
 from collections import defaultdict
 
 import torch
+
+from alink_tpu_torch import _build
 
 SPAN_PREFIX = "alink/"
 
@@ -51,29 +54,26 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> dict[str, int]:
-    """A snapshot of every counter, with the four kernels' launch counts
-    as ``launches.k1`` to ``launches.k4``, the fused BN / PReLU / add
-    kernel's as ``launches.bn_act`` (its backward's as
-    ``launches.bn_act_backward``) and the ViT attention core's as
-    ``launches.attn``."""
-    from alink_tpu_torch.ops.attention import attention_core_kernel
-    from alink_tpu_torch.ops.bn_act import (bn_act_backward_kernel,
-                                            bn_act_kernel)
-    from alink_tpu_torch.ops.image import affine_warp_batch_kernel
-    from alink_tpu_torch.ops.pairwise import score_matrix_kernel
-    from alink_tpu_torch.ops.qconv import conv3x3_s1_int8_flat_kernel
-    from alink_tpu_torch.ops.resblock import bottleneck_s1_kernel
-
+    """A snapshot of every counter, with the kernel library's launch
+    counts (``launches.k1`` to ``launches.k4``, ``launches.bn_act``,
+    ``launches.bn_act_backward``, ``launches.attn``; ``_build``)."""
     out = dict(_COUNTS)
-    for k, fn in (("k1", score_matrix_kernel),
-                  ("k2", affine_warp_batch_kernel),
-                  ("k3", bottleneck_s1_kernel),
-                  ("k4", conv3x3_s1_int8_flat_kernel)):
-        out[f"launches.{k}"] = fn.launches
-    out["launches.bn_act"] = bn_act_kernel.launches
-    out["launches.bn_act_backward"] = bn_act_backward_kernel.launches
-    out["launches.attn"] = attention_core_kernel.launches
+    out.update(_build.launch_counts())
     return out
+
+
+@contextlib.contextmanager
+def counting():
+    """A context manager that yields a dict; when the block ends, the dict
+    holds the counts made inside the block, for every key of
+    ``counters()`` (0 where nothing was counted)."""
+    before = counters()
+    made: dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        made.update((k, v - before.get(k, 0))
+                    for k, v in sorted(counters().items()))
 
 
 class Timings:
@@ -130,11 +130,9 @@ def trace(log_dir: str):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    before = counters()
-    with torch.profiler.profile(activities=acts) as prof:
+    with counting() as made, \
+            torch.profiler.profile(activities=acts) as prof:
         yield prof
-    after = counters()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     with open(os.path.join(log_dir, "counters.json"), "w") as f:
-        json.dump({k: v - before.get(k, 0) for k, v in sorted(after.items())},
-                  f, indent=1)
+        json.dump(made, f, indent=1)

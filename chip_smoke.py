@@ -26,8 +26,8 @@ c. the slice at full width with seeded random weights: ArcFace r100 (bf16)
    behind the MTCNN cascade (typical budgets, open thresholds so every
    budget slot does work), 8 single-image requests through a
    ``MicroBatcher``, then ``Verifier`` pair verification, enrollment,
-   identification and the score matrix.  The kernels' launch counters are
-   zeroed just before and read just after; the aligned chips and the score
+   identification and the score matrix.  The kernels' launches are
+   counted over it (``profiling.counting``); the aligned chips and the score
    matrix are then compared with the plain versions on the same tensors;
 d. ``FaceModel.process`` faces/s at batch 64 (warm, synchronised): the
    median, min and max of 7 windows, and the main thread's CPU time.
@@ -50,9 +50,9 @@ f. the A-LINK training slice at full width: ``run_alink`` (synthetic DFW
    tree, VGGFace-ResNet50 (3, 4, 6, 3) bf16 with seeded random weights,
    ``SiameseHead`` (512, 64), the default noise bank without "adversarial",
    which phase (g) runs)
-   with the counters zeroed just before and read just after (K3 must have
-   run); then ``test_accuracy`` of the student over the plain features,
-   with K1's counter zeroed just before and read just after.  Epochs,
+   with the launches counted over it (K3 must have run); then
+   ``test_accuracy`` of the student over the plain features, with K1's
+   launches counted over it.  Epochs,
    steps and people are cut (each cut is printed).  Then the featurizer
    with K3 against the same model with K3's plain version on 64 faces, and
    featurize images/s at batch 128 (7 windows);
@@ -69,8 +69,8 @@ g. the A2 channel at full width (VGGFace-ResNet50 (3, 4, 6, 3) 224x224 bf16
    builds it (slab and maxiter cut), with its per-phase timings;
 h. K4 (int8 3x3 conv on the flat layout) on its op path at the five
    LResNet100E-II stage shapes of ``benchmarks/bench_qconv.py``, batch 64,
-   and a conv -> prelu_quant -> add_lead -> conv chain, with its counter
-   zeroed just before and read just after; then the kernel on operands
+   and a conv -> prelu_quant -> add_lead -> conv chain, with its launches
+   counted over them; then the kernel on operands
    packed once (``pack_conv``) against its plain version (max |diff| 0 on
    bf16 and int8 outputs, relative 1e-5 on f32); the launch alone (device
    time, ``graph_ms``, and per call from Python), the op path call
@@ -79,8 +79,8 @@ h. K4 (int8 3x3 conv on the flat layout) on its op path at the five
    are, pixel rows only);
 i. the DFW evaluation chain: ``tools.evaluate --prefix`` on a synthetic
    DFW test protocol at 224^2 (1,029 faces; DFW's list has 7,771) with
-   VGGFace-ResNet50 and ``SiameseHead`` (512, 64), K1's and K3's counters
-   zeroed just before and read just after, the grid held to the plain
+   VGGFace-ResNet50 and ``SiameseHead`` (512, 64), K1's and K3's
+   launches counted over it, the grid held to the plain
    version; the DFW-size evaluation (7,770^2 x 2,048 grid, split + sweep
    and stats of the three ROC cases) timed by step as "DFW evaluation s";
    ``eval_regression`` on ``EVAL_r05.json``'s protocol with its stage
@@ -89,7 +89,7 @@ i. the DFW evaluation chain: ``tools.evaluate --prefix`` on a synthetic
 j. resume, restart and augment at full width, with (f)'s configuration and
    cuts (the M2 and committee that (f) saved loaded in every run):
    ``run_alink(augment=True, loop_checkpoint=A)`` with K2's and K3's
-   counters zeroed just before and read just after (K2 six launches per
+   launches counted over it (K2 six launches per
    finetune: 3 variants x 2 halves); the same run with ``max_restarts=1``
    and a RuntimeError injected into its second slab once that slab's
    finetune has trained M2 in place and moved both generators, whose end
@@ -249,6 +249,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from alink_tpu_torch.tools.bench_kernels import cuda_ms, graph_ms, kernel_ms
+from alink_tpu_torch.utils.profiling import counting
+from bench_torch.roofline import (H100_BF16_TFLOPS, H100_BYTES_PER_S,
+                                  H100_F32_TFLOPS, bound_s, k3_flops)
+
 SEED = 0
 IMG = 160          # pre-cropped face photos, as the JAX package's bench uses
 BATCH = 64
@@ -262,32 +267,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events around back-to-back
-    calls (``bench_kernels.cuda_ms``: windows of at least 25 ms)."""
-    from alink_tpu_torch.tools.bench_kernels import cuda_ms as timed
-
-    return timed(fn, iters, warmup)
-
-
-def graph_ms(fn) -> float:
-    """Device milliseconds per call of a library call (``bench_kernels.
-    graph_ms``: calls captured in a CUDA graph and replayed, the host's
-    work not timed, the replay held to an eager call)."""
-    from alink_tpu_torch.tools.bench_kernels import graph_ms as timed
-
-    return timed(fn, exact=False)
-
-
-def kernel_ms(fn, counter, per_call: int = 1) -> tuple[float, float]:
-    """A kernel wrapper's device ms per call and ms per call from Python
-    (``bench_kernels.kernel_ms``: the capture must launch the kernel
-    ``per_call`` times a call and the replay recompute its output)."""
-    from alink_tpu_torch.tools.bench_kernels import kernel_ms as timed
-
-    return timed(fn, counter, per_call=per_call)
 
 
 def maxdiff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -500,7 +479,7 @@ def phase_kernels(dev, g, rng):
         rows, cols = feats[d][0][:n], feats[d][1][:m]
         ms, call = kernel_ms(
             lambda: pairwise.score_matrix_kernel(hd, rows, cols),
-            pairwise.score_matrix_kernel)
+            "launches.k1")
         plain = cuda_ms(
             lambda: pairwise.score_matrix_reference(hd, rows, cols), iters=3)
         ops = n * m * (d + 2 * d * 512 + 2 * 512 * 64 + 2 * 64 * 2)
@@ -557,7 +536,7 @@ def phase_kernels(dev, g, rng):
                     k2_err = max(k2_err, err)
     k2_ms, k2_call = kernel_ms(
         lambda: image.affine_warp_batch_kernel(imgs, Ms, (112, 112)),
-        image.affine_warp_batch_kernel)
+        "launches.k2")
     k2_plain = cuda_ms(lambda: image.affine_warp_batch_reference(
         imgs, Ms, (112, 112)))
     print(f"K2 64x160x160x3 -> 112x112 f32: kernel {k2_ms:.4f} ms "
@@ -565,8 +544,9 @@ def phase_kernels(dev, g, rng):
           flush=True)
     bf_ms, bf_call = kernel_ms(
         lambda: image.affine_warp_batch_kernel(imgs_bf, Ms, (112, 112)),
-        image.affine_warp_batch_kernel)
-    bf_bound = 2 * (imgs.numel() + BATCH * 112 * 112 * 3) / H100_BYTES_PER_S
+        "launches.k2")
+    bf_bound, _ = bound_s(0, H100_F32_TFLOPS,
+                          2 * (imgs.numel() + BATCH * 112 * 112 * 3))
     print(f"K2 64x160x160x3 -> 112x112 bf16: kernel {bf_ms:.4f} ms "
           f"({bf_call:.4f} per call from Python), bound "
           f"{bf_bound * 1e3:.4f} ms (bytes)", flush=True)
@@ -595,9 +575,9 @@ def k1_wide(dev, g, feats) -> None:
         hd = exact_head(kind, g, dev, d, (h1, h2), rows[:64], cols[:64])
         chunks = len(pairwise.head_chunks(h2))
         name = f"{n}x{m}x{d} ({h1}, {h2}) {kind}"
-        before = k1.launches
-        got = k1(hd, rows, cols)
-        launched = k1.launches - before
+        with counting() as made:
+            got = k1(hd, rows, cols)
+        launched = made["launches.k1"]
         want = pairwise.score_matrix_reference(hd, rows, cols)
         torch.cuda.synchronize()
         err = maxdiff(got, want)
@@ -609,33 +589,27 @@ def k1_wide(dev, g, feats) -> None:
               f"{chunks} chunks")
         check(err <= K1_LIMIT, f"K1 {name}: max|diff| {err} > {K1_LIMIT}")
         check(float(q95 - q05) >= 0.4, f"K1 {name}: scores too narrow")
-        ms, call = kernel_ms(lambda: k1(hd, rows, cols), k1, per_call=chunks)
+        ms, call = kernel_ms(lambda: k1(hd, rows, cols), "launches.k1",
+                             per_call=chunks)
         plain = cuda_ms(lambda: pairwise.score_matrix_reference(hd, rows,
                                                                 cols), iters=3)
         ops = n * m * (d + 2 * d * h1 + 2 * h1 * h2 + 2 * h2 * 2)
         nbytes = 4 * (n * d + m * d + n * m) + 2 * (d * h1 + h1 * h2 + 2 * h2)
-        t_ops = ops / (H100_BF16_TFLOPS * 1e12) * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        bound, by = bound_s(ops, H100_BF16_TFLOPS, nbytes)
         print(f"K1 pair_score {name} dyadic, {chunks} chunks of H2: "
               f"max|diff| {err:.3e} (limit {K1_LIMIT}), plain scores 5-95 % "
               f"in [{q05:.3f}, {q95:.3f}]; kernel {ms:.4f} ms ({call:.4f} "
               f"per call from Python), plain {plain:.4f} ms, bound "
-              f"{max(t_ops, t_bytes):.4f} ms "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'})",
-              flush=True)
+              f"{bound * 1e3:.4f} ms ({by})", flush=True)
 
 
 def kernel_numbers(err, ms, call, plain, ops, peak_tera, nbytes,
                    library=None):
-    """One entry of the ``kernels`` line: the bound is the larger of the
-    operations over the card's peak for their type and the bytes over its
-    memory rate."""
-    t_ops = ops / (peak_tera * 1e12) * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    """One entry of the ``kernels`` line, with the bound of ``ops`` at
+    ``peak_tera`` and ``nbytes`` (``roofline.bound_s``)."""
+    bound, by = bound_s(ops, peak_tera, nbytes)
     return {"err": err, "ms": ms, "call_ms": call, "plain_ms": plain,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library}
+            "bound_ms": bound * 1e3, "bound_by": by, "library_ms": library}
 
 
 # K3 against its plain version on the card, at the five stride-1 block
@@ -664,14 +638,6 @@ K3_FLOAT_LIMIT = 1e-2
 K3_WIDE = ((576, ((512, 576, 1024, True), (1024, 576, 1024, False))),
            (1024, ((1024, 1024, 2048, True), (2048, 1024, 2048, False))))
 K3_WIDE_HW = 14
-H100_BF16_TFLOPS = 989.0
-H100_F32_TFLOPS = 67.0          # outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
-
-
-def k3_flops(n, hw, cin, cm, cout, proj) -> float:
-    return 2.0 * n * hw * hw * (cin * cm + 9 * cm * cm + cm * cout
-                                + (cin * cout if proj else 0))
 
 
 def k3_weights(cin, cm, cout, proj, g, dev, exact: bool):
@@ -720,7 +686,6 @@ def k3_wide(dev, g, gd) -> float:
     returns the largest difference of the dyadic checks."""
     from alink_tpu_torch.ops import resblock
 
-    k3 = resblock.bottleneck_s1_kernel
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     hw, worst = K3_WIDE_HW, 0.0
     for cm, blocks in K3_WIDE:
@@ -767,8 +732,8 @@ def k3_wide(dev, g, gd) -> float:
               and got.dtype == torch.bfloat16, f"K3 Cm {cm}: bad output")
         check(rel <= K3_FLOAT_LIMIT, f"K3 Cm {cm} chain: relative {rel} > "
               f"{K3_FLOAT_LIMIT}")
-        ms, call = kernel_ms(lambda: resblock.bottleneck_chain(x, ws), k3,
-                             per_call=len(ws))
+        ms, call = kernel_ms(lambda: resblock.bottleneck_chain(x, ws),
+                             "launches.k3", per_call=len(ws))
         plain = cuda_ms(lambda: resblock.bottleneck_chain_reference(x, ws),
                         iters=3)
         ops = sum(k3_flops(K3_BATCH, hw, ci, c, co, p)
@@ -776,8 +741,7 @@ def k3_wide(dev, g, gd) -> float:
         nbytes = 2 * sum(K3_BATCH * hw * hw * (ci + co) + sum(
             t.numel() for t in (w.w1, w.w3, w.w2, w.wp) if t is not None)
             for (ci, c, co, p), w in zip(blocks, ws))
-        bound = max(ops / (H100_BF16_TFLOPS * 1e12),
-                    nbytes / H100_BYTES_PER_S) * 1e3
+        bound = bound_s(ops, H100_BF16_TFLOPS, nbytes)[0] * 1e3
         print(f"K3 wide chain Cm {cm} {hw}x{hw} batch {K3_BATCH} {name} "
               f"dyadic input: max|diff| {err:.3e}, relative {rel:.3e} (limit "
               f"{K3_FLOAT_LIMIT}), {ndiff} of {want.numel()} differ; kernel "
@@ -859,11 +823,10 @@ def phase_k3(dev, g):
                               + sum(t.numel() for t in (wts.w1, wts.w3,
                                                         wts.w2, wts.wp)
                                     if t is not None))
-                t_ops = ops / (H100_BF16_TFLOPS * 1e12) * 1e3
-                t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-                bound_fwd += count * max(t_ops, t_bytes)
-                ops_fwd += count * t_ops
-                bytes_fwd += count * t_bytes
+                bound_fwd += count * (bound_s(ops, H100_BF16_TFLOPS,
+                                              nbytes)[0] * 1e3)
+                ops_fwd += count * ops
+                bytes_fwd += count * nbytes
             del x, got, want, wts
     # Widths the kernel runs zero-padded: a projected 32 -> 80 -> 200 block
     # and an identity 200 -> 48 -> 200 block, chained (the padded width
@@ -904,7 +867,7 @@ def phase_k3(dev, g):
           f"plain {plain_fwd:.4f} ms, bound {bound_fwd:.4f} ms", flush=True)
     return {"err": err_all, "ms": res["ms"], "call_ms": res["call_ms"],
             "plain_ms": plain_fwd, "bound_ms": bound_fwd,
-            "bound_by": "operations" if ops_fwd >= bytes_fwd else "bytes",
+            "bound_by": bound_s(ops_fwd, H100_BF16_TFLOPS, bytes_fwd)[1],
             "library_ms": None}
 
 
@@ -944,7 +907,7 @@ def phase_alink(dev, smi: str):
     from alink_tpu_torch.drivers import common
     from alink_tpu_torch.drivers.alink import parse_config, run_alink
     from alink_tpu_torch.models import SiameseHead, preprocess
-    from alink_tpu_torch.ops import pairwise, resblock
+    from alink_tpu_torch.ops import resblock
     from alink_tpu_torch.tools.profile_serving import summary, windows
 
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -967,13 +930,13 @@ def phase_alink(dev, smi: str):
     print(f"alink: VGGFace-ResNet50 (3, 4, 6, 3) bf16 built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    k3, k1 = resblock.bottleneck_s1_kernel, pairwise.score_matrix_kernel
-    k3.launches = k1.launches = 0
-    t0 = time.perf_counter()
-    state = run_alink(cfg, featurize=featurize, device=dev)
-    torch.cuda.synchronize()
-    t_run = time.perf_counter() - t0
-    counts = {"bottleneck": k3.launches, "pair_score": k1.launches}
+    with counting() as made:
+        t0 = time.perf_counter()
+        state = run_alink(cfg, featurize=featurize, device=dev)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+    counts = {"bottleneck": made["launches.k3"],
+              "pair_score": made["launches.k1"]}
     print(f"alink: run_alink {t_run:.1f} s; launches {counts}", flush=True)
     check(counts["bottleneck"] > 0,
           "kernel bottleneck was not launched by run_alink")
@@ -991,12 +954,12 @@ def phase_alink(dev, smi: str):
     mask = pf.mask()
     feats = pf.images[mask]
     labels = np.repeat(np.arange(pf.num_people), pf.counts)
-    k1.launches = 0
-    acc = T.test_accuracy(state.m2_state, feats, labels)
-    torch.cuda.synchronize()
+    with counting() as made:
+        acc = T.test_accuracy(state.m2_state, feats, labels)
+        torch.cuda.synchronize()
     print(f"alink: test_accuracy of M2 on {len(feats)} plain faces "
-          f"{acc:.4f}; pair_score launches {k1.launches}", flush=True)
-    check(k1.launches > 0, "kernel pair_score was not launched by "
+          f"{acc:.4f}; pair_score launches {made['launches.k1']}", flush=True)
+    check(made["launches.k1"] > 0, "kernel pair_score was not launched by "
           "test_accuracy")
 
     logs = state.logs
@@ -1164,16 +1127,15 @@ def phase_a2(dev, smi: str) -> int:
     head = SiameseHead(2048, (512, 64), generator=g, device=dev)
     predict = make_adversarial_predict(featurize)
     rng = np.random.default_rng(SEED + 7)
-    k3 = resblock.bottleneck_s1_kernel
     total = 0
 
     # One-pixel DE.
     left, right = rand_pairs(rng, G_DE_PAIRS, F_IMAGE, dev)
     target, labels = one_pixel_targets(predict, head, left, right)
-    k3.launches = 0
-    al, ar, res, t_de = timed_one_pixel(predict, head, left, right, labels,
-                                        G_DE_MAXITER)
-    de_launches = k3.launches
+    with counting() as made:
+        al, ar, res, t_de = timed_one_pixel(predict, head, left, right,
+                                            labels, G_DE_MAXITER)
+    de_launches = made["launches.k3"]
     total += de_launches
     gens = int(res.nit.max())
     check(res.population.shape == (G_DE_PAIRS, 200, 200),
@@ -1214,14 +1176,14 @@ def phase_a2(dev, smi: str) -> int:
     left, right = rand_pairs(rng, G_FGSM_PAIRS, F_IMAGE, dev)
     labels = torch.nn.functional.one_hot(torch.as_tensor(
         rng.integers(0, 2, G_FGSM_PAIRS), device=dev), 2).float()
-    k3.launches = 0
-    fl, fr, ms_fgsm = timed_fgsm(predict, head, left, right, labels)
-    total += k3.launches
+    with counting() as made:
+        fl, fr, ms_fgsm = timed_fgsm(predict, head, left, right, labels)
+    total += made["launches.k3"]
     step = torch.cat([(fl - left).abs(), (fr - right).abs()])
     check(bool(torch.isfinite(step).all()) and float(step.max()) == 2.0,
           "FGSM step is not 2 pixels")
     print(f"a2: FGSM {G_FGSM_PAIRS} pairs (forward + backward through K3): "
-          f"{ms_fgsm:.2f} ms; K3 launches {k3.launches} over 2 calls; "
+          f"{ms_fgsm:.2f} ms; K3 launches {made['launches.k3']} over 2 calls; "
           f"{100 * float((step == 2).float().mean()):.1f} % of pixels moved",
           flush=True)
 
@@ -1294,12 +1256,12 @@ def phase_a2(dev, smi: str) -> int:
     stacks = [PersonStacks(img[i].astype(np.float32),
                            np.full(G_LOOP_PEOPLE, 2, np.int32))
               for i in range(2)]
-    k3.launches = 0
-    t0 = time.perf_counter()
-    log = loop.run_iteration(*stacks)
-    torch.cuda.synchronize()
-    t_it = time.perf_counter() - t0
-    total += k3.launches
+    with counting() as made:
+        t0 = time.perf_counter()
+        log = loop.run_iteration(*stacks)
+        torch.cuda.synchronize()
+        t_it = time.perf_counter() - t0
+    total += made["launches.k3"]
     tm = loop.timings.as_dict()
     check(log.pairs > 0 and log.queried <= log.selected <= log.pairs,
           f"loop log {log}")
@@ -1307,7 +1269,7 @@ def phase_a2(dev, smi: str) -> int:
           f"pairs: {t_it:.3f} s; per phase s " + ", ".join(
               f"{k} {v:.3f}" for k, v in sorted(tm.items(),
                                                  key=lambda kv: -kv[1]))
-          + f"; K3 launches {k3.launches}; {log}", flush=True)
+          + f"; K3 launches {made['launches.k3']}; {log}", flush=True)
     print(f"a2: K3 launches in (g) {total} on {smi}", flush=True)
     return total
 
@@ -1321,8 +1283,8 @@ H100_INT8_TOPS = 1979.0
 def phase_k4(dev, g, smi: str):
     """(h): K4's op path (``conv3x3_s1_int8`` at the five shapes and a
     conv -> prelu_quant -> add_lead -> conv chain at 14x14x256) with its
-    counter zeroed just before and read just after, then the kernel on
-    packed operands against its plain version on the same operands."""
+    launches counted over it, then the kernel on packed operands against
+    its plain version on the same operands."""
     import torch.nn.functional as F
 
     from alink_tpu_torch.ops import qconv
@@ -1331,19 +1293,22 @@ def phase_k4(dev, g, smi: str):
 
     k4 = qconv.conv3x3_s1_int8_flat_kernel
     cases = [k4_case(*s, g, dev) for s in K4_SHAPES]
-    k4.launches = 0
-    for x, w, scale, bias, *_ in cases:
-        out = qconv.conv3x3_s1_int8(x, w, scale, bias)
-        check(out.shape == x.shape[:3] + (w.shape[3],)
-              and bool(torch.isfinite(out.float()).all()), "K4 op output")
-    x, w, scale, bias, alpha, qs, lo = cases[2]
-    q2 = qconv.conv3x3_s1_int8_flat(qconv.nhwc_to_flat(x, lo), w, scale,
-                                    bias, lo, alpha=alpha, quant_scale=qs,
-                                    epilogue="prelu_quant")
-    chain_k = qconv.conv3x3_s1_int8_flat(qconv.add_lead(q2, lo), w, scale,
-                                         bias, lo, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    launches = k4.launches
+    with counting() as made:
+        for x, w, scale, bias, *_ in cases:
+            out = qconv.conv3x3_s1_int8(x, w, scale, bias)
+            check(out.shape == x.shape[:3] + (w.shape[3],)
+                  and bool(torch.isfinite(out.float()).all()),
+                  "K4 op output")
+        x, w, scale, bias, alpha, qs, lo = cases[2]
+        q2 = qconv.conv3x3_s1_int8_flat(qconv.nhwc_to_flat(x, lo), w, scale,
+                                        bias, lo, alpha=alpha,
+                                        quant_scale=qs,
+                                        epilogue="prelu_quant")
+        chain_k = qconv.conv3x3_s1_int8_flat(qconv.add_lead(q2, lo), w,
+                                             scale, bias, lo,
+                                             out_dtype=torch.float32)
+        torch.cuda.synchronize()
+    launches = made["launches.k4"]
     print(f"K4 op path (5 shapes + chain): launches {launches}", flush=True)
     check(launches >= len(K4_SHAPES) + 2, "K4 was not launched by its path")
 
@@ -1382,7 +1347,7 @@ def phase_k4(dev, g, smi: str):
                   f"K4 {name}: bad output")
             check(e <= limit and nz > 0.2, f"K4 {name} {ep}: max|diff| {e}")
             err_all = max(err_all, e)
-        ms, call = kernel_ms(lambda: k4(xf, packed, lo), k4)
+        ms, call = kernel_ms(lambda: k4(xf, packed, lo), "launches.k4")
         op = cuda_ms(lambda: qconv.conv3x3_s1_int8(x, w, scale, bias))
         plain = cuda_ms(lambda: qconv.conv3x3_s1_int8_flat_reference(
             ops, lo, "affine", torch.bfloat16), iters=5)
@@ -1390,22 +1355,20 @@ def phase_k4(dev, g, smi: str):
             memory_format=torch.channels_last)
         wc = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        lib = graph_ms(lambda: F.conv2d(xc, wc, padding=1))
+        lib = graph_ms(lambda: F.conv2d(xc, wc, padding=1), exact=False)
         # The unpadded problem: pixel rows only, Cin and Cout as they are.
         npix = K4_BATCH * hw * hw
         useful = 2.0 * npix * 9 * cin * cout
         moved = npix * cin + 9 * cin * cout + npix * cout * 2
-        t_ops = useful / (H100_INT8_TOPS * 1e12) * 1e3
-        t_bytes = moved / H100_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
+        bound, by = bound_s(useful, H100_INT8_TOPS, moved)
+        bound *= 1e3
         print(f"K4 {name} batch {K4_BATCH}, affine bf16: launch {ms:.4f} ms "
               f"({useful / ms / 1e9:.1f} useful TOPS; {call:.4f} per call "
               f"from Python), op path {op:.4f} ms, "
               f"plain {plain:.4f} ms, bf16 F.conv2d {lib:.4f} ms "
-              f"({ms / lib:.2f}x), bound {bound:.4f} ms "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+              f"({ms / lib:.2f}x), bound {bound:.4f} ms ({by}; "
               f"{100 * bound / ms:.1f} % of it) on {smi}", flush=True)
-        rows.append((ms, plain, lib, op, bound, call, t_ops >= t_bytes))
+        rows.append((ms, plain, lib, op, bound, call, by == "operations"))
     ms, plain, lib, op, bound, call = (sum(r[i] for r in rows)
                                        for i in range(6))
     by = "operations" if sum(r[6] for r in rows) * 2 > len(rows) else "bytes"
@@ -1428,8 +1391,8 @@ I_EVAL_R05 = "EVAL_r05.json"
 
 def phase_eval(dev, smi: str) -> dict:
     """(i): the DFW evaluation chain (``tools.evaluate`` through
-    ``--prefix``) at 224^2 with the counters zeroed just before and read
-    just after, its grid held to the plain version; the DFW-size
+    ``--prefix``) at 224^2 with the launches counted over it, its grid
+    held to the plain version; the DFW-size
     evaluation by step; ``run_eval_regression`` on EVAL_r05.json's
     protocol.  Returns the kernels' launches on the evaluation path."""
     import contextlib
@@ -1442,11 +1405,10 @@ def phase_eval(dev, smi: str) -> dict:
     from alink_tpu_torch.evaluation import (masked_scores, roc_stats,
                                             threshold_sweep)
     from alink_tpu_torch.models import SiameseHead
-    from alink_tpu_torch.ops import pairwise, resblock
+    from alink_tpu_torch.ops import pairwise
     from alink_tpu_torch.tools import eval_regression, evaluate
     from alink_tpu_torch.tools.generate_matrix import restore_head_and_score
 
-    k1, k3 = pairwise.score_matrix_kernel, resblock.bottleneck_s1_kernel
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     out = Path(tempfile.mkdtemp(prefix="eval_", dir=work))
@@ -1468,17 +1430,17 @@ def phase_eval(dev, smi: str) -> dict:
 
     # 1. tools.evaluate through --prefix: VGGFace-ResNet50 (K3), the grid
     # (K1), the split, the sweep and the stats of the three cases.
-    k1.launches = k3.launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with counting() as made, contextlib.redirect_stdout(buf):
         feats, scores = evaluate.main([
             "--model_ckpt", ckpt, "--prefix", root, "--mask",
             str(Path(root) / "updated_testing_mask.txt"), "--device",
             str(dev)])
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    counts = {"pair_score": k1.launches, "bottleneck": k3.launches}
+    counts = {"pair_score": made["launches.k1"],
+              "bottleneck": made["launches.k3"]}
     lines = [json.loads(line) for line in buf.getvalue().splitlines()
              if line.startswith("{")]
     print(f"eval: tools.evaluate --prefix ({faces} faces at {F_IMAGE}^2, "
@@ -1527,12 +1489,12 @@ def phase_eval(dev, smi: str) -> dict:
     thresholds = np.linspace(0.0, 1.0, 10001)
     for run in ("first", "warm"):
         torch.cuda.synchronize()
-        k1.launches = 0
-        t0 = time.perf_counter()
-        grid = restore_head_and_score(ckpt, fd, dev)
-        torch.cuda.synchronize()
-        t_grid = time.perf_counter() - t0
-        launched = k1.launches
+        with counting() as made:
+            t0 = time.perf_counter()
+            grid = restore_head_and_score(ckpt, fd, dev)
+            torch.cuda.synchronize()
+            t_grid = time.perf_counter() - t0
+        launched = made["launches.k1"]
         t_sweep = t_stats = 0.0
         stats = {}
         for case in (1, 2, 3):
@@ -1599,16 +1561,15 @@ def phase_eval(dev, smi: str) -> dict:
     eval_regression.restore_head_and_score = kept
     buf = io.StringIO()
     torch.cuda.synchronize()
-    k1.launches = 0
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(buf):
+        with counting() as made, contextlib.redirect_stdout(buf):
             art = eval_regression.main(["--device", str(dev)])
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
     finally:
         eval_regression.restore_head_and_score = score_stage
     t_reg = time.perf_counter() - t0
-    launched = k1.launches
+    launched = made["launches.k1"]
     counts["pair_score"] += launched
     check(launched > 0, "kernel pair_score was not launched by "
           "run_eval_regression")
@@ -1691,7 +1652,7 @@ def phase_resume(dev, smi: str, f_cfg, f_finetune_s: float) -> dict:
     from alink_tpu_torch.drivers import alink as alink_mod
     from alink_tpu_torch.drivers import common
     from alink_tpu_torch.models import SiameseHead
-    from alink_tpu_torch.ops import augment, image, resblock
+    from alink_tpu_torch.ops import augment, image
     from alink_tpu_torch.train import TrainState, custom_train
 
     t_phase = time.perf_counter()
@@ -1705,7 +1666,6 @@ def phase_resume(dev, smi: str, f_cfg, f_finetune_s: float) -> dict:
                                 loop_checkpoint=str(out / "loop_a"),
                                 out_model=str(out / "post_a"))
     k2 = image.affine_warp_batch_kernel
-    k3 = resblock.bottleneck_s1_kernel
 
     # 1. Ground truth, uninterrupted; augment's inputs and matrices recorded.
     seen = []
@@ -1724,15 +1684,16 @@ def phase_resume(dev, smi: str, f_cfg, f_finetune_s: float) -> dict:
         return real_augment(g, left, right, labels, draw=keep)
 
     loop_mod.augment_pairs = recorded
-    k2.launches = k3.launches = 0
     try:
-        t0 = time.perf_counter()
-        gt = alink_mod.run_alink(cfg_a, featurize=featurize, device=dev)
-        torch.cuda.synchronize()
-        t_gt = time.perf_counter() - t0
+        with counting() as made:
+            t0 = time.perf_counter()
+            gt = alink_mod.run_alink(cfg_a, featurize=featurize, device=dev)
+            torch.cuda.synchronize()
+            t_gt = time.perf_counter() - t0
     finally:
         loop_mod.augment_pairs = real_augment
-    counts = {"affine_warp": k2.launches, "bottleneck": k3.launches}
+    counts = {"affine_warp": made["launches.k2"],
+              "bottleneck": made["launches.k3"]}
     n_ft = sum(lg.finetuned for lg in gt.logs)
     print(f"resume: run_alink(augment=True) {t_gt:.1f} s; launches {counts}; "
           f"{n_ft} finetune events", flush=True)
@@ -1771,18 +1732,19 @@ def phase_resume(dev, smi: str, f_cfg, f_finetune_s: float) -> dict:
     cfg_b = dataclasses.replace(cfg_a, loop_checkpoint=str(out / "loop_b"),
                                 out_model=str(out / "post_b"), max_restarts=1)
     alink_mod.ALinkLoop = Flaky
-    k2.launches = k3.launches = 0
     try:
-        t0 = time.perf_counter()
-        sup = alink_mod.run_alink(cfg_b, featurize=featurize, device=dev)
-        torch.cuda.synchronize()
-        t_sup = time.perf_counter() - t0
+        with counting() as made:
+            t0 = time.perf_counter()
+            sup = alink_mod.run_alink(cfg_b, featurize=featurize, device=dev)
+            torch.cuda.synchronize()
+            t_sup = time.perf_counter() - t0
     finally:
         alink_mod.ALinkLoop = loop_mod.ALinkLoop
     st = sup.timings
     print(f"resume: supervised run {t_sup:.1f} s, attempts {len(attempts)}, "
-          f"'{J_INJECTED}' raised in attempt {faults}; K2 {k2.launches}, "
-          f"K3 {k3.launches} launches; restore {st.totals['restore']:.4f} s, "
+          f"'{J_INJECTED}' raised in attempt {faults}; K2 "
+          f"{made['launches.k2']}, K3 {made['launches.k3']} launches; "
+          f"restore {st.totals['restore']:.4f} s, "
           f"save s/call {st.totals['save'] / st.counts['save']:.4f}",
           flush=True)
     check(len(attempts) == 2 and faults == [1] and sup is attempts[1].state,
@@ -1825,10 +1787,11 @@ def phase_resume(dev, smi: str, f_cfg, f_finetune_s: float) -> dict:
     check(worst == 0.0, f"K2 at the augment shape: max|diff| {worst}")
     x, Ms = cases[0]
     ms, call = kernel_ms(
-        lambda: k2(x, Ms, (F_IMAGE, F_IMAGE), "nearest", "nearest"), k2)
+        lambda: k2(x, Ms, (F_IMAGE, F_IMAGE), "nearest", "nearest"),
+        "launches.k2")
     plain = cuda_ms(lambda: image.affine_warp_batch_reference(
         x, Ms, (F_IMAGE, F_IMAGE), "nearest", "nearest"), iters=5)
-    bound = 2 * x.numel() * 4 / H100_BYTES_PER_S * 1e3
+    bound = bound_s(0, H100_F32_TFLOPS, 2 * x.numel() * 4)[0] * 1e3
     print(f"K2 augment ({q}, {F_IMAGE}, {F_IMAGE}, 3) f32 nearest/nearest, "
           f"{len(cases)} warps: max|diff| {worst:.3e} vs plain; kernel "
           f"{ms:.4f} ms ({call:.4f} per call from Python), plain "
@@ -1888,20 +1851,19 @@ def rng_images(n: int) -> np.ndarray:
 
 @contextlib.contextmanager
 def bn_act_counted(model, what: str, counts: dict):
-    """``bn_act_kernel.launches`` over the block, counted from 0, held to
-    149 a forward of the r100 ``model`` inside it (a forward pre-hook
-    counts them), and added to ``counts["bn_act"]``."""
-    from alink_tpu_torch.ops.bn_act import bn_act_kernel
-
+    """Yields ``counting()``'s dict over the block; its
+    ``launches.bn_act`` is held to 149 a forward of the r100 ``model``
+    inside the block (a forward pre-hook counts them) and added to
+    ``counts["bn_act"]``."""
     forwards = []
     hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
-    bn_act_kernel.launches = 0
     try:
-        yield
-        torch.cuda.synchronize()
+        with counting() as made:
+            yield made
+            torch.cuda.synchronize()
     finally:
         hook.remove()
-    n = bn_act_kernel.launches
+    n = made["launches.bn_act"]
     check(bool(forwards) and n == 149 * len(forwards),
           f"{what}: bn_act launched {n} times over {len(forwards)} r100 "
           f"forwards, not 149 each")
@@ -1925,12 +1887,9 @@ def phase_slice(dev, g, rng, head):
     print(f"slice: r100 + cascade built in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    kernels = (pairwise.score_matrix_kernel, image.affine_warp_batch_kernel)
-    for k in kernels:
-        k.launches = 0
     t0 = time.perf_counter()
     bn_act_count = {}
-    with bn_act_counted(fm.embedder, "serving slice", bn_act_count), \
+    with bn_act_counted(fm.embedder, "serving slice", bn_act_count) as made, \
             MicroBatcher(fm.process, max_batch=8, max_delay_s=0.05) as mb:
         futs = [None] * 8
 
@@ -1948,8 +1907,8 @@ def phase_slice(dev, g, rng, head):
         verifier.enroll(photos[:128], list(range(128)))
         labels, top = verifier.identify(photos[128:160], k=5)
         grid = verifier.score_matrix(photos[:256])
-    counts = {"pair_score": pairwise.score_matrix_kernel.launches,
-              "affine_warp": image.affine_warp_batch_kernel.launches,
+    counts = {"pair_score": made["launches.k1"],
+              "affine_warp": made["launches.k2"],
               "bn_act": bn_act_count["bn_act"]}
     print(f"slice: requests + verify/enroll/identify/score_matrix in "
           f"{time.perf_counter() - t0:.1f} s; launches {counts}", flush=True)
@@ -2056,7 +2015,6 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
     from alink_tpu_torch.tools.profile_serving import summary, windows
 
     t_phase = time.perf_counter()
-    k1, k2 = pairwise.score_matrix_kernel, image.affine_warp_batch_kernel
     counts = {"pair_score": 0, "affine_warp": 0, "bn_act": 0}
     photos = torch.as_tensor(rng.uniform(0, 255, (BATCH, IMG, IMG, 3)),
                              dtype=torch.float32, device=dev)
@@ -2129,18 +2087,18 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
     for name in K_PROFILES:
         fm = FaceModel(emb, pb, getattr(CascadeConfig, name)(
             thresholds=K_OPEN))
-        k2.launches = 0
-        with bn_act_counted(emb, f"process {name}", counts):
+        with bn_act_counted(emb, f"process {name}", counts) as made:
             s = summary(windows(lambda: fm.process(photos), dev,
                                 n_windows=7, iters=K_WINDOW_ITERS))
-        counts["affine_warp"] += k2.launches
+        counts["affine_warp"] += made["launches.k2"]
         print(f"process {name}: {BATCH * 1e3 / s['median_ms']:.1f} faces/s "
               f"at batch {BATCH} (median of 7 windows of {K_WINDOW_ITERS} "
               f"{s['median_ms']:.2f} ms/batch, min {s['min_ms']:.2f}, max "
               f"{s['max_ms']:.2f}; main-thread CPU {s['cpu_median_ms']:.2f}), "
-              f"K2 launches {k2.launches}, r100 bf16, {IMG}x{IMG} on {smi}",
-              flush=True)
-        check(k2.launches > 0, f"process {name}: K2 was not launched")
+              f"K2 launches {made['launches.k2']}, r100 bf16, {IMG}x{IMG} "
+              f"on {smi}", flush=True)
+        check(made["launches.k2"] > 0, f"process {name}: K2 was not "
+              "launched")
 
     # L-Net: every refined landmark inside its patch; K2's chips of the
     # refined landmarks against the plain warp.
@@ -2166,18 +2124,19 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
     Ms = alignment_transforms(lmk)
     chips = image.affine_warp_batch(photos, Ms, (112, 112))
     one = image.affine_warp(photos[0], Ms[0], (112, 112))
-    k2.launches = 0
-    fm_l.process(photos)
-    torch.cuda.synchronize()
-    counts["affine_warp"] += k2.launches
+    with counting() as made:
+        fm_l.process(photos)
+        torch.cuda.synchronize()
+    counts["affine_warp"] += made["launches.k2"]
     err = max(maxdiff(chips, image.affine_warp_batch_reference(
         photos, Ms, (112, 112))), maxdiff(one, chips[0]))
     print(f"lnet: {int(d0.valid.sum())} faces, every refined landmark in its "
           f"patch, mean |move| {float(moved.mean()):.2f} px; K2 chips of the "
           f"refined landmarks vs plain max|diff| {err:.3e}; K2 launches "
-          f"{k2.launches}", flush=True)
+          f"{made['launches.k2']}", flush=True)
     check(err <= 1e-3, f"lnet chips: max|diff| {err} > 1e-3")
-    check(k2.launches > 0, "accurate_landmark process: K2 was not launched")
+    check(made["launches.k2"] > 0, "accurate_landmark process: K2 was not "
+          "launched")
 
     # detect_faces_limited from the full cascade's stage-1 boxes.
     with torch.no_grad():
@@ -2232,16 +2191,16 @@ def phase_serving_rest(dev, g, rng, head, smi: str) -> dict:
 
     # Verifier.score_matrix over crowd-profile embeddings (K1).
     fm_c = FaceModel(emb, pb, crowd)
-    k1.launches = 0
-    grid = Verifier(fm_c.process, head).score_matrix(photos)
-    torch.cuda.synchronize()
-    counts["pair_score"] += k1.launches
+    with counting() as made:
+        grid = Verifier(fm_c.process, head).score_matrix(photos)
+        torch.cuda.synchronize()
+    counts["pair_score"] += made["launches.k1"]
     feats = fm_c.process(photos)
     err = maxdiff(grid, pairwise.score_matrix_reference(head, feats, feats))
     print(f"crowd: Verifier.score_matrix over crowd embeddings vs plain "
           f"max|diff| {err:.3e} (limit {K1_FLOAT_LIMIT}); K1 launches "
-          f"{k1.launches}", flush=True)
-    check(k1.launches > 0, "score_matrix did not launch K1")
+          f"{made['launches.k1']}", flush=True)
+    check(made["launches.k1"] > 0, "score_matrix did not launch K1")
     check(err <= K1_FLOAT_LIMIT, f"crowd score_matrix: max|diff| {err}")
     print(f"serving rest: phase (k) serving side "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2409,7 +2368,7 @@ def phase_mtp(dev, smi: str) -> dict:
     from alink_tpu_torch.drivers.alink import parse_config
     from alink_tpu_torch.evaluation.identification import gallery_top1
     from alink_tpu_torch.models import SmallRes, preprocess, siamese
-    from alink_tpu_torch.ops import pairwise, resblock
+    from alink_tpu_torch.ops import pairwise
 
     t_phase = time.perf_counter()
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -2464,16 +2423,15 @@ def phase_mtp(dev, smi: str) -> dict:
             dropout=k.get("dropout_generator") is not None)
         return res
 
-    k3, k1 = resblock.bottleneck_s1_kernel, pairwise.score_matrix_kernel
     tmtp.ALinkLoop, T.custom_train = Cut, timed_train
     try:
-        k3.launches = 0
-        t0 = time.perf_counter()
-        state, top1 = tmtp.run_alink_mtp(cfg, featurize=featurize,
-                                         device=dev)
-        torch.cuda.synchronize()
-        t_run = time.perf_counter() - t0
-        counts = {"bottleneck": k3.launches}
+        with counting() as made:
+            t0 = time.perf_counter()
+            state, top1 = tmtp.run_alink_mtp(cfg, featurize=featurize,
+                                             device=dev)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+        counts = {"bottleneck": made["launches.k3"]}
     finally:
         tmtp.ALinkLoop, T.custom_train = base, real_train
     print(f"mtp: run_alink_mtp {t_run:.1f} s; K3 launches "
@@ -2514,13 +2472,13 @@ def phase_mtp(dev, smi: str) -> dict:
     score = tmtp.smallres_score_fn(state.m2_state)
     gallery_top1(score, test_lo)
     torch.cuda.synchronize()
-    k1.launches = 0
-    t0 = time.perf_counter()
-    again = gallery_top1(score, test_lo)
-    torch.cuda.synchronize()
-    t_tail = (time.perf_counter() - t0) * 1e3
-    counts["pair_score"] = tail_launches = k1.launches
-    check(k1.launches > 0, "kernel pair_score was not launched by the "
+    with counting() as made:
+        t0 = time.perf_counter()
+        again = gallery_top1(score, test_lo)
+        torch.cuda.synchronize()
+        t_tail = (time.perf_counter() - t0) * 1e3
+    counts["pair_score"] = tail_launches = made["launches.k1"]
+    check(tail_launches > 0, "kernel pair_score was not launched by the "
           "top-1 tail")
     check(again == top1, f"top-1 {again} != the driver's {top1}")
     live = np.flatnonzero(test_lo.counts > 0)
@@ -2654,15 +2612,15 @@ def phase_mtp(dev, smi: str) -> dict:
         learner_cls = mod.ActiveLearner
         mod.ActiveLearner = timed_learner(learner_cls)
         rounds.clear()
-        k3.launches = 0
         try:
-            t0 = time.perf_counter()
-            learner = run()
-            torch.cuda.synchronize()
-            t_end = time.perf_counter()
+            with counting() as made:
+                t0 = time.perf_counter()
+                learner = run()
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
         finally:
             mod.ActiveLearner = learner_cls
-        launched = k3.launches
+        launched = made["launches.k3"]
         check(len(rounds) == L_AL_ROUNDS and learner._y is not None,
               f"{name}: {len(rounds)} rounds")
         per = (t_end - rounds[0]) / len(rounds)
@@ -2797,7 +2755,6 @@ def phase_classify(dev, smi: str) -> dict:
     t_phase = time.perf_counter()
     for line in M_CUTS:
         print(f"classify cut: {line}", flush=True)
-    k3 = resblock.bottleneck_s1_kernel
     gd = torch.Generator(device=dev).manual_seed(SEED + 13)
 
     def seeded():
@@ -2843,9 +2800,9 @@ def phase_classify(dev, smi: str) -> dict:
             elif name.endswith((".beta", ".mean")):
                 p.copy_(0.2 * torch.randn(p.shape, generator=g))
     xp = preprocess.vggface(x, version=2)
-    k3.launches = 0
-    net(xp)
-    fwd_launches = k3.launches
+    with counting() as made:
+        net(xp)
+    fwd_launches = made["launches.k3"]
     stride1, idx = [], 0
     for stage, n in enumerate(net.stage_sizes):
         stride1 += list(net.blocks[idx + (1 if stage else 0):idx + n])
@@ -2928,14 +2885,14 @@ def phase_classify(dev, smi: str) -> dict:
 
         tclassifier.classifier_train_step = timed
         try:
-            k3.launches = 0
-            state, logs = T.fit_classifier(
-                state, imgs, labels, epochs=M_EPOCHS, batch_size=M_BATCH,
-                generator=seeded(),
-                dropout_generator=torch.Generator(device=dev).manual_seed(
-                    SEED))
-            torch.cuda.synchronize()
-            launched = k3.launches
+            with counting() as made:
+                state, logs = T.fit_classifier(
+                    state, imgs, labels, epochs=M_EPOCHS, batch_size=M_BATCH,
+                    generator=seeded(),
+                    dropout_generator=torch.Generator(
+                        device=dev).manual_seed(SEED))
+                torch.cuda.synchronize()
+            launched = made["launches.k3"]
         finally:
             tclassifier.classifier_train_step = real_step
         full = [t for t, n, _ in steps[1:] if n == M_BATCH]
@@ -3112,7 +3069,7 @@ def phase_parallel(dev, smi: str) -> dict:
                                         init_cascade_params)
     from alink_tpu_torch.drivers.common import make_resnet50_featurizer
     from alink_tpu_torch.models import ArcFaceResNet100, SiameseHead
-    from alink_tpu_torch.ops import image, pairwise, resblock
+    from alink_tpu_torch.ops import pairwise
     from alink_tpu_torch.serving import Verifier
 
     t_phase = time.perf_counter()
@@ -3147,20 +3104,19 @@ def phase_parallel(dev, smi: str) -> dict:
     chips = torch.rand((N_TP_CHIPS, 112, 112, 3), generator=gd,
                        device=dev) * 255
 
-    k1, k2, k3 = (pairwise.score_matrix_kernel,
-                  image.affine_warp_batch_kernel,
-                  resblock.bottleneck_s1_kernel)
-    k1.launches = k2.launches = k3.launches = 0
-    with torch.no_grad():
-        f_sh = P.sharded_featurize(mesh, featurize, faces)
-    p_sh = P.sharded_face_pipeline(mesh, fm, photos)
-    c_sh = P.sharded_committee_probs(mesh, com.head, com.params, left, right)
-    g_sh = pairwise.score_matrix_sharded(mesh, grid_head, rows, cols)
-    v_sh = verifier.score_matrix(rows, precomputed=True)
-    tp_sh = P.arcface_tp_apply(mesh, r100, chips)
-    torch.cuda.synchronize()
-    counts = {"bottleneck": k3.launches, "affine_warp": k2.launches,
-              "pair_score": k1.launches}
+    with counting() as made:
+        with torch.no_grad():
+            f_sh = P.sharded_featurize(mesh, featurize, faces)
+        p_sh = P.sharded_face_pipeline(mesh, fm, photos)
+        c_sh = P.sharded_committee_probs(mesh, com.head, com.params, left,
+                                         right)
+        g_sh = pairwise.score_matrix_sharded(mesh, grid_head, rows, cols)
+        v_sh = verifier.score_matrix(rows, precomputed=True)
+        tp_sh = P.arcface_tp_apply(mesh, r100, chips)
+        torch.cuda.synchronize()
+    counts = {"bottleneck": made["launches.k3"],
+              "affine_warp": made["launches.k2"],
+              "pair_score": made["launches.k1"]}
     print(f"parallel: sharded featurize / face pipeline / committee / grid / "
           f"Verifier grid / TP; launches {counts}", flush=True)
     check(counts["bottleneck"] == 13,
@@ -3371,25 +3327,24 @@ def phase_ingest(dev, smi: str, people: int = O_PEOPLE) -> dict:
         featurize(torch.zeros((2, F_IMAGE, F_IMAGE, 3), device=dev))  # warm
         cfg = ALinkConfig(data_dir_prefix=str(root),
                           image_res=(F_IMAGE, F_IMAGE))
-        k3 = resblock.bottleneck_s1_kernel
         threads = 16          # load_person_stacks' default
 
         def stage(name, dct=False, pil=False):
             """``load_dfw`` timed; ``pil`` switches the native loader off
             for the run (``load_image_list``'s "auto" then takes PIL)."""
             feat_s[0] = 0.0
-            k3.launches = 0
             available = native_loader.available
             if pil:
                 native_loader.available = lambda: False
             try:
-                sync()
-                t0 = time.perf_counter()
-                data = common.load_dfw(
-                    dataclasses.replace(cfg, ingest_dct_scale=dct),
-                    timed_featurize, dev)
-                sync()
-                wall = time.perf_counter() - t0
+                with counting() as made:
+                    sync()
+                    t0 = time.perf_counter()
+                    data = common.load_dfw(
+                        dataclasses.replace(cfg, ingest_dct_scale=dct),
+                        timed_featurize, dev)
+                    sync()
+                    wall = time.perf_counter() - t0
             finally:
                 native_loader.available = available
             ingest = wall - feat_s[0]
@@ -3398,9 +3353,9 @@ def phase_ingest(dev, smi: str, people: int = O_PEOPLE) -> dict:
                   f"{ingest:.3f} s ({n_images / ingest:.1f} images/s; "
                   f"threads {threads}, os.cpu_count() {os.cpu_count()}), "
                   f"featurize {feat_s[0]:.3f} s "
-                  f"(K3 launches {k3.launches}); ingest {ingest / wall:.1%} "
-                  f"of staging", flush=True)
-            return data, k3.launches
+                  f"(K3 launches {made['launches.k3']}); ingest "
+                  f"{ingest / wall:.1%} of staging", flush=True)
+            return data, made["launches.k3"]
 
         pil, _ = stage("pil", pil=True)
         # The main path: load_dfw as run_alink calls it (the decoder
@@ -3614,8 +3569,6 @@ def phase_bn_act(dev, smi: str) -> dict:
     one forward from ``profiling.trace``'s ``counters.json``."""
     from alink_tpu_torch.models import ArcFaceResNet100
     from alink_tpu_torch.ops import bn_act as B
-    from alink_tpu_torch.tools.bench_kernels import graph_ms as g_ms
-    from alink_tpu_torch.tools.bench_kernels import kernel_ms as k_ms
     from alink_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
@@ -3656,15 +3609,15 @@ def phase_bn_act(dev, smi: str) -> dict:
               f"{diff:.3e}")
         elt = torch.finfo(dtype).bits // 8
         nbytes = (3 if mode.startswith("bn_add") else 2) * got.numel() * elt
-        ms, call = k_ms(lambda: B.bn_act_kernel(*args), B.bn_act_kernel,
-                        calls=P_CALLS)
-        plain = g_ms(lambda: B.bn_act_reference(*args), calls=P_CALLS)
+        ms, call = kernel_ms(lambda: B.bn_act_kernel(*args),
+                             "launches.bn_act", calls=P_CALLS)
+        plain = graph_ms(lambda: B.bn_act_reference(*args), calls=P_CALLS)
         # The library's yardstick: PyTorch's vectorised elementwise kernel
         # on the same bytes (x * 2, or x + shortcut in the add modes).
         x, shortcut = args[0], args[4]
-        library = g_ms((lambda: x + shortcut) if shortcut is not None
-                       else (lambda: x * 2), calls=P_CALLS)
-        bound = nbytes / H100_BYTES_PER_S * 1e3
+        library = graph_ms((lambda: x + shortcut) if shortcut is not None
+                           else (lambda: x * 2), calls=P_CALLS)
+        bound = bound_s(0, H100_BF16_TFLOPS, nbytes)[0] * 1e3
         if offset == 0 and dtype == torch.bfloat16:
             per[(mode, shape)] = (ms, call, plain, bound, library)
         print(f"bn_act {mode} {shape} {str(dtype)[6:]}"
@@ -3689,13 +3642,14 @@ def phase_bn_act(dev, smi: str) -> dict:
                 check(torch.equal(gb, wb) and gb.dtype == dtype,
                       f"bn_act backward {mode} {shape} {dtype} offset "
                       f"{offset}: max |diff| {diff:.3e}")
-        b_ms, b_call = k_ms(lambda: B.bn_act_backward_kernel(*bargs)[0],
-                            B.bn_act_backward_kernel, calls=P_CALLS)
-        b_plain = g_ms(lambda: B.bn_act_backward_reference(*bargs)[0],
-                       calls=P_CALLS)
+        b_ms, b_call = kernel_ms(
+            lambda: B.bn_act_backward_kernel(*bargs)[0],
+            "launches.bn_act_backward", calls=P_CALLS)
+        b_plain = graph_ms(lambda: B.bn_act_backward_reference(*bargs)[0],
+                           calls=P_CALLS)
         b_bytes = (3 if mode in ("bn_prelu", "bn_add_bn") else 2) * \
             grad.numel() * elt
-        b_bound = b_bytes / H100_BYTES_PER_S * 1e3
+        b_bound = bound_s(0, H100_BF16_TFLOPS, b_bytes)[0] * 1e3
         if offset == 0 and dtype == torch.bfloat16:
             per_b[(mode, shape)] = (b_ms, b_call, b_plain, b_bound)
         print(f"bn_act backward {mode} {shape} {str(dtype)[6:]}"
@@ -3776,13 +3730,12 @@ def phase_bn_act(dev, smi: str) -> dict:
         grads = []
         for fn in (B.bn_act, _module_chain):
             xi = x.clone().requires_grad_(True)
-            B.bn_act_backward_kernel.launches = 0
-            with _arcface_bn_act(fn):
+            with counting() as made, _arcface_bn_act(fn):
                 (model(xi) * w).sum().backward()
             grads.append(xi.grad)
             want = 149 if fn is B.bn_act else 0
-            check(B.bn_act_backward_kernel.launches == want,
-                  f"bn_act: {B.bn_act_backward_kernel.launches} backward "
+            check(made["launches.bn_act_backward"] == want,
+                  f"bn_act: {made['launches.bn_act_backward']} backward "
                   f"launches in one r100 backward, want {want}")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
@@ -3889,6 +3842,7 @@ def phase_attention(dev, smi: str) -> tuple[int, dict]:
 
     import alink_tpu_torch.models.vit as vit
     from alink_tpu_torch import _build
+    from bench_torch.roofline_vit import attn_bound_s
     from alink_tpu_torch.models import FaceViT_L
     from alink_tpu_torch.ops import attention as A
     from alink_tpu_torch.utils import profiling
@@ -3926,9 +3880,10 @@ def phase_attention(dev, smi: str) -> tuple[int, dict]:
     q, k, v = _qkv_views(Q_SHAPE, gd)
     n, h, t, d = Q_SHAPE
     kernel = lambda: A.attention_core_kernel(q, k, v)      # noqa: E731
-    ms, call = kernel_ms(kernel, A.attention_core_kernel)
+    ms, call = kernel_ms(kernel, "launches.attn")
     cold = _cold_ms(kernel)
-    plain = graph_ms(lambda: A.attention_core_reference(q, k, v))
+    plain = graph_ms(lambda: A.attention_core_reference(q, k, v),
+                     exact=False)
 
     def library_core(q, k, v):
         # PyTorch's float32 attention with its upcasts and the head merge,
@@ -3940,11 +3895,10 @@ def phase_attention(dev, smi: str) -> tuple[int, dict]:
     lib = cuda_ms(lambda: library_core(q, k, v))
     problems = n * h
     bytes_f32 = problems * t * d * (3 * 2 + 4)
-    bound = bytes_f32 / H100_BYTES_PER_S * 1e3
+    bound = bound_s(0, H100_BF16_TFLOPS, bytes_f32)[0] * 1e3
     # attn_roofline.serve_vit's bound: 4 T^2 D a face over TF32's peak, or
     # q, k, v and the output at 2 bytes.
-    metric_bound = max(problems * 4 * t * t * d / 494.7e12,
-                       problems * 4 * t * d * 2 / H100_BYTES_PER_S) * 1e3
+    metric_bound = attn_bound_s(n, t, h * d) * 1e3
     flops = problems * 8 * t * t * d
     print(f"attention {Q_SHAPE}: kernel {ms:.4f} ms (L2 flushed "
           f"{cold:.4f}, per call from Python {call:.4f}), bytes bound "
@@ -3982,14 +3936,14 @@ def phase_attention(dev, smi: str) -> tuple[int, dict]:
 
     hooks = [model.blocks[i].attn.core.register_forward_hook(keep(i))
              for i in (0, Q_DEPTH - 1)]
-    before = A.attention_core_kernel.launches
     with torch.no_grad():
-        emb = model(chips[:Q_FORWARD])
+        with counting() as made:
+            emb = model(chips[:Q_FORWARD])
         for hk in hooks:
             hk.remove()
-        check(A.attention_core_kernel.launches - before == Q_DEPTH,
-              f"attention: {A.attention_core_kernel.launches - before} "
-              f"launches in one ViT-L forward")
+        check(made["launches.attn"] == Q_DEPTH,
+              f"attention: {made['launches.attn']} launches in one ViT-L "
+              f"forward")
         with core(A.attention_core_reference):
             emb_plain = model(chips[:Q_FORWARD])
     attn_gap = max(maxdiff(out, A.attention_core_reference(*args))
@@ -4074,13 +4028,12 @@ def phase_attention(dev, smi: str) -> tuple[int, dict]:
     grads = []
     for fn in (A.attention_core, A.attention_core_reference, library_core):
         xi = x.clone().requires_grad_(True)
-        before = A.attention_core_kernel.launches
-        with core(fn):
+        with counting() as made, core(fn):
             (model(xi) * w).sum().backward()
         want = Q_DEPTH if fn is A.attention_core else 0
-        check(A.attention_core_kernel.launches - before == want,
-              f"attention: {A.attention_core_kernel.launches - before} "
-              f"launches in one FGSM forward, want {want}")
+        check(made["launches.attn"] == want,
+              f"attention: {made['launches.attn']} launches in one FGSM "
+              f"forward, want {want}")
         launches += want
         grads.append(xi.grad)
 

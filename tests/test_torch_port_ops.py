@@ -26,6 +26,7 @@ from alink_tpu.ops import umeyama as jumeyama
 from alink_tpu_torch.convert import load_flax
 from alink_tpu_torch.models import SiameseHead
 from alink_tpu_torch.ops import boxes, image, nms, pairwise, umeyama
+from alink_tpu_torch.utils.profiling import counting
 
 
 def _t(x):
@@ -294,13 +295,13 @@ def test_warp_plain_matches_pallas_interpret():
 
 def test_warp_dispatch_on_cpu_and_kernel_refuses_cpu():
     imgs, Ms = _warp_inputs(15)
-    before = image.affine_warp_batch_kernel.launches
-    out = image.affine_warp_batch(_t(imgs), _t(Ms), (13, 19))
+    with counting() as made:
+        out = image.affine_warp_batch(_t(imgs), _t(Ms), (13, 19))
+        with pytest.raises(ValueError):
+            image.affine_warp_batch_kernel(_t(imgs), _t(Ms), (13, 19))
     assert torch.equal(out, image.affine_warp_batch_reference(
         _t(imgs), _t(Ms), (13, 19)))
-    with pytest.raises(ValueError):
-        image.affine_warp_batch_kernel(_t(imgs), _t(Ms), (13, 19))
-    assert image.affine_warp_batch_kernel.launches == before
+    assert made["launches.k2"] == 0
 
 
 # ------------------------------------------------------------- pairwise ---

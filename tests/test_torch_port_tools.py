@@ -503,3 +503,24 @@ def test_new_modules_import_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_profiling_counters_load_no_kernel_module():
+    """``utils.profiling.counters()`` reads the launch counts from the
+    kernel library's loader: in a fresh interpreter it loads no module of
+    ``alink_tpu_torch.ops``, and gives every launch counter at 0."""
+    code = (
+        "import json, sys\n"
+        "from alink_tpu_torch.utils import profiling\n"
+        "c = profiling.counters()\n"
+        "print(json.dumps([sorted(k for k in sys.modules if k.startswith("
+        "'alink_tpu_torch.ops')), {k: v for k, v in c.items() if "
+        "k.startswith('launches.')}]))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    ops, launches = json.loads(res.stdout.strip().splitlines()[-1])
+    assert ops == []
+    assert launches == dict.fromkeys(
+        ["launches.k1", "launches.k2", "launches.k3", "launches.k4",
+         "launches.bn_act", "launches.bn_act_backward", "launches.attn"], 0)

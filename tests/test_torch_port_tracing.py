@@ -6,11 +6,15 @@ CPU, tiny shapes."""
 
 from __future__ import annotations
 
+import contextlib
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from alink_tpu_torch import _build
 from alink_tpu_torch.active.committee import Committee
 from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
                                     init_cascade_params)
@@ -22,6 +26,8 @@ from alink_tpu_torch.ops import nms as nms_ops
 from alink_tpu_torch.utils import profiling as P
 
 PREFIX = P.SPAN_PREFIX
+LAUNCHES = ("launches.k1", "launches.k2", "launches.k3", "launches.k4",
+            "launches.bn_act", "launches.bn_act_backward", "launches.attn")
 NOISE = ("gaussian", "saltpepper", "adversarial", "fgsm")
 
 
@@ -126,16 +132,51 @@ def test_count_refuses_a_tensor():
     assert _delta(before, ["test.refused"]) == {"test.refused": 0}
 
 
-def test_counters_carry_the_kernels_launch_counts():
-    from alink_tpu_torch.ops.image import affine_warp_batch_kernel
-    from alink_tpu_torch.ops.pairwise import score_matrix_kernel
-    from alink_tpu_torch.ops.qconv import conv3x3_s1_int8_flat_kernel
-    from alink_tpu_torch.ops.resblock import bottleneck_s1_kernel
+@pytest.mark.parametrize("name", LAUNCHES)
+def test_counters_carry_the_kernels_launch_counts(name):
+    """Every kernel's launch counter is in ``counters()`` from the start,
+    and the CPU launches nothing."""
+    assert P.counters()[name] == 0
 
-    c = P.counters()
-    assert [c[f"launches.k{i}"] for i in range(1, 5)] == [
-        score_matrix_kernel.launches, affine_warp_batch_kernel.launches,
-        bottleneck_s1_kernel.launches, conv3x3_s1_int8_flat_kernel.launches]
+
+class _StubLibrary:
+    """The kernel library's ``alink_pair_score`` and error strings: each
+    call is recorded and returns ``status``."""
+
+    def __init__(self, status: int):
+        self.status, self.calls = status, []
+
+    def alink_pair_score(self, *args):
+        self.calls.append(args)
+        return self.status
+
+    def alink_error_string(self, status: int) -> bytes:
+        return f"stub error {status}".encode()
+
+
+@pytest.mark.parametrize("status", [0, 719])
+def test_launch_counts_only_a_launch_that_succeeded(monkeypatch, status):
+    """``_build.launch`` calls the entry on the device with its current
+    stream last; status 0 counts one launch under the entry's counter,
+    any other raises and counts nothing."""
+    lib, entered = _StubLibrary(status), []
+    monkeypatch.setattr(_build, "_lib", lib)
+    monkeypatch.setattr(_build, "_LAUNCHES", dict(_build._LAUNCHES))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: entered.append(
+        dev) or contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=4242))
+    with P.counting() as made:
+        if status:
+            with pytest.raises(RuntimeError,
+                               match="alink_pair_score.*stub error 719"):
+                _build.launch("alink_pair_score", "cuda:0", 3, 5)
+        else:
+            _build.launch("alink_pair_score", "cuda:0", 3, 5)
+    assert lib.calls == [(3, 5, 4242)] and entered == ["cuda:0"]
+    assert made == {k: int(k == "launches.k1" and status == 0)
+                    for k in made}
+    assert set(LAUNCHES) <= set(made)
 
 
 # -- under a CPU profiler -----------------------------------------------------

@@ -53,9 +53,9 @@ _SIGNATURES = {
     "alink_affine_warp": ("launches.k2", [_P, _I, _P, _P] + [_I] * 8 + [_P]),
     # x, n, h, w, cin, cm, cout, w1, s1, b1, w3, s2, b2, w2, s3, b3, wp, sp,
     # bp, out, act (global y1/y2 scratch or null), slots, split, blocks,
-    # stream
+    # tile rows, tile columns, stream
     "alink_bottleneck": ("launches.k3", [_P] + [_I] * 6 + [_P] * 14
-                         + [_I] * 3 + [_P]),
+                         + [_I] * 5 + [_P]),
     # rows, cols, n, m, d, w1, b1, h1p, w2, b2, h2p, wo, bo, out, np1,
     # stages, grid, group, mode, stream
     "alink_pair_score": ("launches.k1", [_P, _P, _I, _I, _I, _P, _P, _I, _P,

@@ -48,12 +48,20 @@ from alink_tpu_torch import _build
 class BottleneckPacked(NamedTuple):
     """The weight matrices in the order ``csrc/bottleneck.cu`` stages them
     (``pack_bottleneck``): for each pass of ``np`` output columns (128, or
-    64 for a 64-wide matrix) and each 32-row K-slab, the (np, 32) bf16
-    transposed slab is one contiguous 4-8 KB run, its 16-byte chunks
-    swizzled as the kernel's shared rows are.
+    64 for a 64-wide matrix and for a projection block's W2 and Wp:
+    ``_pass_width``) and each 16-row K slice, the slice's (np, 16)
+    bf16 as np / 8 core matrices of 8 columns x 16 bytes (8 K rows), the
+    two 8-row halves of the slice 128 bytes apart: the K-major layout a
+    wgmma shared-memory descriptor reads without swizzle.  A pass's 64-row
+    K chunks (and W3's taps) follow one another, so the kernel stages up
+    to 4 chunks with one bulk copy.
 
-    w1: (Cm / np, Cin / 32, np, 32)      w3: (Cm / np, 9, Cm / 32, np, 32)
-    w2: (Cout / np, Cm / 32, np, 32)     wp: (Cout / np, Cin / 32, np, 32)
+    w1: (Cm / np, Cin / 16, np / 8, 2, 8, 8)
+    w3: (Cm / np, 9, Cm / 16, np / 8, 2, 8, 8)
+    w2: (Cout / np, Cm / 16, np / 8, 2, 8, 8)
+    wp: (Cout / np, Cin / 16, np / 8, 2, 8, 8)
+    element [p, s, g, h, i, j] of a matrix W (K, N) is
+    W[16 s + 8 h + j, np p + 8 g + i].
     """
 
     w1: torch.Tensor
@@ -148,18 +156,18 @@ def _block_plain(x: torch.Tensor, wts: BottleneckWeights) -> torch.Tensor:
     return out.reshape(n, h, w, cout)
 
 
-# Widths of csrc/bottleneck.cu: x is staged in pairs of 32-channel slabs
-# (Cin % 64), the weights in passes of 128 output columns or one pass of 64
-# (Cm and Cout 64 or a multiple of 128).  Other widths run zero-padded, as
-# the TPU kernel pads every width to 128 lanes: ``pad_bottleneck`` pads
-# Cin, Cm and Cout to ``padded_width`` (Cin too, so that a block's padded
-# output is the next block's padded input and an identity shortcut pads
-# Cin and Cout alike).  y1 (102 rows) and y2 (64 rows) of Cm bf16 channels
-# live in shared memory beside a ring of at least 2 30 KB entries while
-# they fit the 227 KB a block can have on an H100 (Cm <= 512); a wider Cm
-# keeps them in a global scratch, one region per block of a persistent
-# grid (``launch_plan``'s ``global_act``), so every width runs.
-_KS = 32
+# Widths of csrc/bottleneck.cu: x is staged in 64-channel chunks (Cin %
+# 64), the weights in passes of 128 output columns or one pass of 64 (Cm
+# and Cout 64 or a multiple of 128).  Other widths run zero-padded, as the
+# TPU kernel pads every width to 128 lanes: ``pad_bottleneck`` pads Cin, Cm
+# and Cout to ``padded_width`` (Cin too, so that a block's padded output is
+# the next block's padded input and an identity shortcut pads Cin and Cout
+# alike).  y1 and y2 of a tile live in shared memory beside a ring of at
+# least 2 entries while they fit the 227 KB a block can have on an H100
+# (every VGGFace-ResNet50 shape: Cm <= 512); a wider Cm keeps them in a
+# global scratch, one region per block of a persistent grid
+# (``launch_plan``'s ``global_act``), so every width runs.
+_KC = 64
 
 
 def padded_width(c: int) -> int:
@@ -174,51 +182,42 @@ def kernel_takes(cin: int, cm: int, cout: int) -> bool:
     return min(cin, cm, cout) > 0
 
 
-def _pass_width(n: int) -> int:
-    return min(n, 128)
+def _pass_width(n: int, proj: bool = False) -> int:
+    """Columns of a pass: 128, or 64 for a 64-wide matrix and for a
+    projection block's W2 and Wp (its stage 3 holds two accumulators)."""
+    return 64 if proj else min(n, 128)
 
 
-def _chunk_swizzle(np_: int) -> torch.Tensor:
-    """(np, 4): the 16-byte chunk of a 64-byte row that physical chunk c of
-    row n holds (c ^ ((n >> 1) & 3), the kernel's ``slab_off``)."""
-    n = torch.arange(np_)[:, None]
-    return torch.arange(4)[None, :] ^ ((n >> 1) & 3)
-
-
-def _pack_matrix(m: torch.Tensor) -> torch.Tensor:
-    """(K, N) -> (N / np, K / 32, np, 32) bf16, slabs transposed and
-    swizzled (``BottleneckPacked``)."""
+def _pack_matrix(m: torch.Tensor, np_: int) -> torch.Tensor:
+    """(K, N) -> (N / np, K / 16, np / 8, 2, 8, 8) bf16, the core-matrix
+    order of ``BottleneckPacked``."""
     k, n = m.shape
-    np_ = _pass_width(n)
-    t = m.to(torch.bfloat16).reshape(k // _KS, _KS, n // np_, np_)
-    t = t.permute(2, 0, 3, 1).reshape(n // np_, k // _KS, np_, 4, 8)
-    idx = _chunk_swizzle(np_).to(m.device)[None, None, :, :, None]
-    return torch.gather(t, 3, idx.expand_as(t)).reshape(
-        n // np_, k // _KS, np_, _KS).contiguous()
+    t = m.to(torch.bfloat16).reshape(k // 16, 2, 8, n // np_, np_ // 8, 8)
+    return t.permute(3, 0, 4, 1, 5, 2).contiguous()
 
 
 def _unpack_matrix(t: torch.Tensor) -> torch.Tensor:
     """``_pack_matrix``'s inverse: (K, N)."""
-    passes, slabs, np_, _ = t.shape
-    t = t.reshape(passes, slabs, np_, 4, 8)
-    idx = _chunk_swizzle(np_).to(t.device)[None, None, :, :, None]
-    t = torch.gather(t, 3, idx.expand_as(t))     # the swizzle is an XOR
-    return t.reshape(passes, slabs, np_, _KS).permute(1, 3, 0, 2).reshape(
-        slabs * _KS, passes * np_)
+    passes, slices, groups = t.shape[:3]
+    return t.permute(1, 3, 5, 0, 2, 4).reshape(slices * 16,
+                                               passes * groups * 8)
 
 
 @torch.no_grad()
 def pack_bottleneck(wts: BottleneckWeights) -> BottleneckPacked:
     """The matrices of ``wts`` in ``csrc/bottleneck.cu``'s staging order
-    (``BottleneckPacked``), on their device."""
-    cm = wts.w1.shape[1]
-    w3 = torch.stack([_pack_matrix(wts.w3[dy, dx]) for dy in range(3)
+    (``BottleneckPacked``: per pass, K-major core matrices that the
+    kernel's wgmma descriptors read as B, 64-row K chunks contiguous), on
+    their device.  The JAX-layout matrices stay as they are for the plain
+    version and ``BottleneckS1``'s backward."""
+    cm, cout = wts.w2.shape
+    np12, np3 = _pass_width(cm), _pass_width(cout, wts.wp is not None)
+    w3 = torch.stack([_pack_matrix(wts.w3[dy, dx], np12) for dy in range(3)
                       for dx in range(3)], dim=1)
     return BottleneckPacked(
-        _pack_matrix(wts.w1), w3.reshape(w3.shape[0], 9, cm // _KS,
-                                         *w3.shape[3:]).contiguous(),
-        _pack_matrix(wts.w2),
-        None if wts.wp is None else _pack_matrix(wts.wp))
+        _pack_matrix(wts.w1, np12), w3.contiguous(),
+        _pack_matrix(wts.w2, np3),
+        None if wts.wp is None else _pack_matrix(wts.wp, np3))
 
 
 def unpack_bottleneck(p: BottleneckPacked) -> tuple[torch.Tensor, ...]:
@@ -256,99 +255,186 @@ def pad_bottleneck(wts: BottleneckWeights) -> BottleneckWeights:
         mat(wts.wp, ci, co), vec(wts.sp, co), vec(wts.bp, co))
 
 
-# Tiling of csrc/bottleneck.cu: one 8 x 8 tile of output pixels per block;
-# per cluster of 2 or 4 blocks where the tiles are fewer than half the SMs;
-# or one persistent block per SM walking the tiles where they are short (Cm
-# <= 128) and outnumber the SMs.  y1 on the tile's 10 x 10 halo (plus a
-# guard row before and a row after), y2 on its 64 pixels, and a ring of
-# 2-4 entries, each two consecutive slabs (8 KB of weights and 7 KB of x).
+# Tiling of csrc/bottleneck.cu.  A tile is th x tw output pixels of one
+# image; y1 is computed on its (th + 2) x (tw + 2) halo in flat row order
+# (row stride hs = tw + 2), y2 and the output on the tile's th * hs flat
+# rows, the 2 halo columns of each row computed and dropped.  Every stage
+# runs on whole 64-row wgmma products: stage 1 on ``mt1`` 64-row tiles
+# (<= 3: a warpgroup's accumulators), stages 2 and 3 on ``mt2`` (<= 2).
+# Shared memory holds y1 (halo rows) and y2 (64 mt2 rows) of Cm bf16 and a
+# ring of 2-4 entries, each one 64-row K chunk of weights (16 KB at most)
+# and its x (``xrows`` rows of 64 channels), or up to 4 chunks of weights.
 # Where y1 and y2 do not fit beside a 2-entry ring, they live in a global
-# scratch of ``_ACT_ROWS`` x Cm bf16 per block, and the grid is one
-# persistent block per SM.  ``launch_plan`` decides each launch and the
-# wrapper passes its ring depth, cluster size, grid and scratch to the
-# kernel's entry point, which checks them.
-_TILE = 8
-_Y1_ROWS = 2 + (_TILE + 2) ** 2
-_ACT_ROWS = _Y1_ROWS + _TILE * _TILE
-_ENTRY = 2 * (128 * _KS * 2 + 112 * _KS * 2)
+# scratch of ``act_rows`` x Cm bf16 per block, on one persistent block per
+# SM.  ``launch_plan`` decides each launch and the wrapper passes its tile,
+# ring depth, cluster size, grid and scratch to the kernel's entry point,
+# which checks them.
+_B_CHUNK = 128 * _KC * 2
+_MAX_CHUNKS = 4
+_MAX_MT1, _MAX_MT2 = 3, 2
+_MAX_BOX = 256
 _MAX_SLOTS = 4
 _MAX_SMEM = 232448
+_BARS = 8 * (2 * _MAX_SLOTS + 2)
 _SMS = 132                     # streaming multiprocessors of an H100 SXM
+# What a tile costs beyond its rows: streaming the block's weights once,
+# charged as this many rows of every stage.
+_TILE_ROWS = 64
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _a(b: int, align: int) -> int:
+    return _ceil(b, align) * align
+
+
+class BottleneckTile(NamedTuple):
+    """A tile of ``th`` x ``tw`` outputs (``csrc/bottleneck.cu``'s
+    ``Geom``): the halo's row stride ``hs`` = tw + 2 and rows ``halo`` (y1's
+    rows), the 64-row tiles of stage 1 (``mt1``, over the halo) and of
+    stages 2-3 (``mt2``, over th * hs flat rows), and the rows of x a ring
+    entry holds (stage 1 reads 64 mt1, the projection up to 64 mt2 + hs)."""
+
+    th: int
+    tw: int
+    hs: int
+    halo: int
+    mt1: int
+    mt2: int
+    xrows: int
+
+
+def bottleneck_tile(th: int, tw: int) -> BottleneckTile:
+    hs = tw + 2
+    halo = (th + 2) * hs
+    mt1, mt2 = _ceil(halo, 64), _ceil(th * hs, 64)
+    return BottleneckTile(th, tw, hs, halo, mt1, mt2,
+                          _a(max(64 * mt1, 64 * mt2 + hs + 1), 8))
+
+
+def _smem(cm: int, tile: BottleneckTile, slots: int,
+          global_act: bool = False) -> tuple[int, int]:
+    """(bytes of a ring entry, dynamic shared memory of a block): y1 and
+    y2 unless global, the ring, the barriers and 1024 bytes of alignment
+    (the kernel's ``smem_plan``)."""
+    y2_at = 0 if global_act else _a(tile.halo * cm * 2, 128)
+    ring_at = 0 if global_act else _a(y2_at + 64 * tile.mt2 * cm * 2, 1024)
+    entry = _a(_B_CHUNK + tile.xrows * 128, 1024)
+    return entry, ring_at + slots * entry + _BARS + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def choose_tile(h: int, w: int, cin: int, cm: int, cout: int,
+                proj: bool) -> BottleneckTile:
+    """The tile with the fewest rows computed over an image, each stage's
+    rows weighed by its operations a row and each tile charged
+    ``_TILE_ROWS`` more rows for streaming the weights, among those whose
+    stages fit ``_MAX_MT1`` and ``_MAX_MT2`` 64-row tiles; balanced (th and
+    tw split h and w evenly), the earliest found on a tie."""
+    c1 = cin * cm
+    c23 = 9 * cm * cm + cm * cout + (cin * cout if proj else 0)
+    best = None
+    for nx in range(1, w + 1):
+        tw = _ceil(w, nx)
+        if tw + 2 > _MAX_BOX or nx > 1 and tw == _ceil(w, nx - 1):
+            continue
+        for ny in range(1, h + 1):
+            th = _ceil(h, ny)
+            if th + 2 > _MAX_BOX or ny > 1 and th == _ceil(h, ny - 1):
+                continue
+            t = bottleneck_tile(th, tw)
+            if t.mt1 > _MAX_MT1 or t.mt2 > _MAX_MT2:
+                continue
+            tiles = _ceil(h, th) * _ceil(w, tw)
+            cost = tiles * (c1 * (64 * t.mt1 + _TILE_ROWS)
+                            + c23 * (64 * t.mt2 + _TILE_ROWS))
+            if best is None or cost < best[0]:
+                best = (cost, t)
+    return best[1]
 
 
 class BottleneckPlan(NamedTuple):
-    """How ``csrc/bottleneck.cu`` runs one launch: the ring depth, cluster
-    size and grid its entry point is given, and the slab sequence its
-    cursor walks."""
+    """How ``csrc/bottleneck.cu`` runs one launch: the tile, ring depth,
+    cluster size and grid its entry point is given, and the ring entries
+    its producer fills."""
 
+    tile: BottleneckTile
     tiles_x: int
     tiles_y: int
     tiles: int              # n * tiles_x * tiles_y
     split: int              # blocks per tile (a cluster when > 1)
     blocks: int             # tiles * split, or one per SM (persistent)
     slots: int              # ring entries
+    entry: int              # bytes of a ring entry
     smem: int               # dynamic shared memory per block (bytes)
     global_act: bool        # y1 and y2 in global scratch (a wide Cm)
-    # The slab sequence of the block of each rank in a cluster:
-    # (stage, pass, tap, k0, proj, last of its pass).
-    schedule: tuple[tuple[tuple[int, int, int, int, bool, bool], ...], ...]
-
-
-def _a128(b: int) -> int:
-    return -(-b // 128) * 128
-
-
-def _smem(cm: int, slots: int, global_act: bool = False) -> int:
-    act = 0 if global_act else (_a128(_Y1_ROWS * cm * 2)
-                                + _a128(_TILE * _TILE * cm * 2))
-    return act + slots * _ENTRY + 16 * _MAX_SLOTS + 16
+    act_rows: int           # y1 and y2 rows a block (global scratch)
+    # The ring entries of the block of each rank in a cluster, each a
+    # tuple of 64-row K chunks: (stage, pass, tap, k0, proj, last of its
+    # pass).
+    schedule: tuple[tuple[tuple[tuple[int, int, int, int, bool, bool], ...],
+                          ...], ...]
 
 
 def _schedule(cin: int, cm: int, cout: int, proj: bool, passes12: range,
-              passes3: range) -> tuple:
-    sched = []
+              passes3: range, nb12: int, nb3: int) -> tuple:
+    entries = []
+
+    def run(chunks, nb):        # a pass's chunks, nb to an entry
+        entries.extend(tuple(chunks[i:i + nb])
+                       for i in range(0, len(chunks), nb))
+
     for pas in passes12:
-        for k0 in range(0, cin, _KS):
-            sched.append((1, pas, 0, k0, False, k0 + _KS == cin))
+        run([(1, pas, 0, k0, False, k0 + _KC == cin)
+             for k0 in range(0, cin, _KC)], 1)
     for pas in passes12:
-        for tap in range(9):
-            for k0 in range(0, cm, _KS):
-                sched.append((2, pas, tap, k0, False,
-                              tap == 8 and k0 + _KS == cm))
+        run([(2, pas, tap, k0, False, tap == 8 and k0 + _KC == cm)
+             for tap in range(9) for k0 in range(0, cm, _KC)], nb12)
     for pas in passes3:
-        for k0 in range(0, cm, _KS):
-            sched.append((3, pas, 0, k0, False, not proj and k0 + _KS == cm))
-        for k0 in range(0, cin if proj else 0, _KS):
-            sched.append((3, pas, 0, k0, True, k0 + _KS == cin))
-    return tuple(sched)
+        run([(3, pas, 0, k0, False, not proj and k0 + _KC == cm)
+             for k0 in range(0, cm, _KC)], nb3)
+        run([(3, pas, 0, k0, True, k0 + _KC == cin)
+             for k0 in range(0, cin if proj else 0, _KC)], 1)
+    return tuple(entries)
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(n: int, h: int, w: int, cin: int, cm: int, cout: int,
                 proj: bool, sms: int = _SMS) -> BottleneckPlan:
-    """The kernel's grid, cluster size, ring depth, home of y1 and y2 and
-    slab schedules for one launch on a card of ``sms`` SMs (the wrapper
-    passes the card's count); block b walks tiles b, b + blocks / split,
-    ...  A Cm whose y1 and y2 do not fit shared memory beside a 2-entry
-    ring keeps them in global scratch, on one persistent block per SM."""
-    global_act = _smem(cm, 2) > _MAX_SMEM
-    fits = [s for s in range(_MAX_SLOTS, 1, -1)
-            if _smem(cm, s, global_act) <= _MAX_SMEM]
-    tx, ty = -(-w // _TILE), -(-h // _TILE)
+    """The kernel's tile (``choose_tile``), grid, cluster size, ring depth,
+    home of y1 and y2 and ring entries for one launch on a card of ``sms``
+    SMs (the wrapper passes the card's count), from the shapes alone.
+    Block b walks tiles b, b + blocks / split, ...: one persistent block
+    per SM where the tiles outnumber the SMs; a cluster of 4 blocks a tile
+    where that many fit the SMs (and divide every stage's passes), else of
+    2; else one block a tile.  A Cm whose y1 and y2 do not fit shared
+    memory beside a 2-entry ring keeps them in global scratch, without
+    clusters."""
+    t = choose_tile(h, w, cin, cm, cout, proj)
+    global_act = _smem(cm, t, 2)[1] > _MAX_SMEM
+    slots = max(s for s in range(2, _MAX_SLOTS + 1)
+                if _smem(cm, t, s, global_act)[1] <= _MAX_SMEM)
+    entry, smem = _smem(cm, t, slots, global_act)
+    tx, ty = _ceil(w, t.tw), _ceil(h, t.th)
     tiles = n * tx * ty
-    p12, p3 = cm // _pass_width(cm), cout // _pass_width(cout)
+    np12, np3 = _pass_width(cm), _pass_width(cout, proj)
+    p12, p3 = cm // np12, cout // np3
     split = 1 if global_act else next(
         (k for k in (4, 2) if p12 % k == 0 and p3 % k == 0
          and tiles * k <= sms), 1)
     per12, per3 = p12 // split, p3 // split
+    nb12, nb3 = (min(_MAX_CHUNKS, entry // (np_ * _KC * 2))
+                 for np_ in (np12, np3))
     sched = tuple(_schedule(cin, cm, cout, proj,
                             range(r * per12, (r + 1) * per12),
-                            range(r * per3, (r + 1) * per3))
+                            range(r * per3, (r + 1) * per3), nb12, nb3)
                   for r in range(split))
-    persistent = split == 1 and (cm <= 128 or global_act) and tiles > sms
-    return BottleneckPlan(tx, ty, tiles, split,
-                          sms if persistent else tiles * split, fits[0],
-                          _smem(cm, fits[0], global_act), global_act, sched)
+    persistent = split == 1 and tiles > sms
+    return BottleneckPlan(t, tx, ty, tiles, split,
+                          sms if persistent else tiles * split, slots, entry,
+                          smem, global_act, t.halo + 64 * t.mt2, sched)
 
 
 @torch.no_grad()
@@ -420,9 +506,10 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     ``wts`` from ``kernel_weights`` on the same device.
 
     Takes any Cin, Cm and Cout, run at their padded widths (y1 and y2 in
-    a global scratch this function allocates where the padded Cm passes
-    512); C is Cin, or Cin's padded width with zeros in the pad channels (a
-    padded output of this function).  The output is
+    a global scratch this function allocates where they do not fit shared
+    memory: a padded Cm past 512 at VGGFace's feature-map sizes); C is
+    Cin, or Cin's padded width with zeros in the pad channels (a padded
+    output of this function).  The output is
     (N, H, W, Cout) bf16, or (N, H, W, padded Cout) with ``keep_padded``.
     """
     n, h, w, c = x.shape
@@ -450,8 +537,9 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     if c < cin_p:
         x = F.pad(x, (0, cin_p - c))
     out = torch.empty((n, h, w, cout_p), dtype=torch.bfloat16, device=dev)
-    act = (torch.empty((plan.blocks, _ACT_ROWS, cm_p), dtype=torch.bfloat16,
-                       device=dev) if plan.global_act else None)
+    act = (torch.empty((plan.blocks, plan.act_rows, cm_p),
+                       dtype=torch.bfloat16, device=dev)
+           if plan.global_act else None)
     pk, v = wts.packed, wts.vecs
     ptrs = [None if t is None else t.data_ptr() for t in
             (pk.w1, v.s1, v.b1, pk.w3, v.s2, v.b2, pk.w2, v.s3, v.b3, pk.wp,
@@ -459,7 +547,7 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     _build.launch("alink_bottleneck", dev, x.data_ptr(), n, h, w, cin_p, cm_p,
                   cout_p, *ptrs, out.data_ptr(),
                   None if act is None else act.data_ptr(), plan.slots,
-                  plan.split, plan.blocks)
+                  plan.split, plan.blocks, plan.tile.th, plan.tile.tw)
     if keep_padded or cout_p == cout:
         return out
     return out[..., :cout].contiguous()

@@ -33,19 +33,21 @@ d. ``FaceModel.process`` faces/s at batch 64 (warm, synchronised): the
    median, min and max of 7 windows, and the main thread's CPU time.
    ``python -m alink_tpu_torch.tools.profile_serving`` breaks it down;
 e. K3 (fused stride-1 bottleneck) against its plain version at the five
-   stride-1 block shapes of VGGFace-ResNet50 at 224x224, at batch 32, 64
-   and 256 (each launch setup the paths use: clusters of 4 and of 2 at
-   7x7, persistent blocks, one block per tile): on dyadic data (exact,
-   limit 1e-6) and float data (relative 1e-2), and a chain of two blocks
+   stride-1 block shapes of VGGFace-ResNet50 at 224x224, at batch 32, 64,
+   256 and 1,024 (each launch setup the paths use: clusters of 4 and of 2
+   at 7x7, of 2 at 14x14, persistent blocks, one block per tile), each
+   line naming its tile: on dyadic data (exact, limit 1e-6) and float data
+   (relative 1e-2), and a chain of two blocks
    at widths the kernel runs zero-padded (32 -> 80 -> 200, 200 -> 48 ->
    200; dyadic, exact), and at Cm 576 and 1,024 (y1 and y2 in global
    scratch): each block exact on dyadic data, a two-block chain held to
    the float limit and timed; then
    the device time of the launch alone (``bench_kernels.graph_ms``: calls
    captured in a CUDA graph and replayed; the time per call from Python
-   beside it) per shape and over the 13 blocks of one forward at batch 32
-   and 256, beside the same block as an unfused bf16 cuDNN sequence (a
-   yardstick only), with TFLOP/s;
+   beside it) per shape and over the 13 blocks of one forward at batch 32,
+   256 and 1,024, beside the same block as an unfused bf16 cuDNN sequence
+   (a yardstick only), with TFLOP/s, and each shape at batch 32 and 1,024
+   beside its ``roofline.bound_s`` bound;
 f. the A-LINK training slice at full width: ``run_alink`` (synthetic DFW
    tree, VGGFace-ResNet50 (3, 4, 6, 3) bf16 with seeded random weights,
    ``SiameseHead`` (512, 64), the default noise bank without "adversarial",
@@ -614,13 +616,15 @@ def kernel_numbers(err, ms, call, plain, ops, peak_tera, nbytes,
 
 # K3 against its plain version on the card, at the five stride-1 block
 # shapes of VGGFace-ResNet50 at 224x224 (bench_kernels.K3_SHAPES), at the
-# batches whose launches differ: 32 (clusters of 4 at 7x7), 64 (clusters of
-# 2: the featurizer check of (f)) and 256 (``featurize_stacks`` and the
-# one-pixel DE's ``EVAL_BATCH``: one block per tile at 14x14 and 7x7,
-# persistent blocks at 55x55 and 28x28, as at every batch).  The plain
-# version is timed at batch 32.
+# batches whose launches differ: 32 (clusters of 4 at 7x7 and of 2 at
+# 14x14), 64 (clusters of 2 at 7x7: the featurizer check of (f)), 256
+# (``featurize_stacks`` and the one-pixel DE's ``EVAL_BATCH``) and 1,024
+# (the noise cell's slab): persistent blocks at every other shape and
+# batch.  The plain version is timed at batch 32; the kernel at 32, 256 and
+# 1,024, each shape beside its bound at 32 and 1,024.
 K3_BATCH = 32
-K3_CHECK_BATCHES = (32, 64, 256)
+K3_CHECK_BATCHES = (32, 64, 256, 1024)
+K3_TIME_BATCHES = (32, 256, 1024)
 # Dyadic data (integer activations, weights in {-1, 0, 1}, BN scales
 # {1, 2} x 2^-k and shifts on the same grid) keeps every f32 product and
 # partial sum exact, so both sides round the same values to bf16: expect 0.
@@ -755,12 +759,12 @@ def k3_wide(dev, g, gd) -> float:
 
 def phase_k3(dev, g):
     """(e): K3 against its plain version at the featurizer's five stride-1
-    block shapes, at batch 32, 64 and 256; then the launch alone at batch
-    32 and 256 (the batch ``featurize_stacks`` and the one-pixel DE give
-    it) beside the same block as an unfused bf16 cuDNN sequence (a
-    yardstick, not ``library_ms``: no single call computes the block).
-    Returns the numbers summed over the 13 blocks of one forward at batch
-    32."""
+    block shapes, at batch 32, 64, 256 and 1,024; then the launch alone at
+    batch 32, 256 (the batch ``featurize_stacks`` and the one-pixel DE give
+    it) and 1,024 beside the same block as an unfused bf16 cuDNN sequence
+    (a yardstick, not ``library_ms``: no single call computes the block),
+    and each shape at batch 32 and 1,024 beside its bound.  Returns the
+    numbers summed over the 13 blocks of one forward at batch 32."""
     from alink_tpu_torch.ops import resblock
     from alink_tpu_torch.tools.bench_kernels import K3_SHAPES, bench_k3
 
@@ -773,9 +777,10 @@ def phase_k3(dev, g):
             plan = resblock.launch_plan(
                 batch, hw, hw, cin, cm, cout, proj,
                 torch.cuda.get_device_properties(dev).multi_processor_count)
-            setup = (f"clusters of {plan.split}" if plan.split > 1 else
-                     "persistent" if plan.blocks < plan.tiles else
-                     "one block per tile")
+            setup = (f"{plan.tile.th}x{plan.tile.tw} tiles, " + (
+                f"clusters of {plan.split}" if plan.split > 1 else
+                "persistent" if plan.blocks < plan.tiles else
+                "one block per tile"))
             shape = (batch, hw, hw, cin)
             for exact in (True, False):
                 wts = k3_weights(cin, cm, cout, proj, g, dev, exact)
@@ -851,8 +856,21 @@ def phase_k3(dev, g):
     del x, got, want, ws
     err_all = max(err_all, k3_wide(dev, g, gd))
     torch.cuda.empty_cache()
-    times = bench_k3(dev, (K3_BATCH, 256), g)
+    times = bench_k3(dev, K3_TIME_BATCHES, g)
     for batch, res in times.items():
+        if int(batch) in (K3_BATCH, K3_TIME_BATCHES[-1]):
+            for (hw, cin, cm, cout, proj, _), row in zip(K3_SHAPES,
+                                                         res["shapes"]):
+                n = int(batch)
+                nbytes = 2 * (n * hw * hw * (cin + cout) + cin * cm
+                              + 9 * cm * cm + cm * cout
+                              + (cin * cout if proj else 0))
+                bound, by = bound_s(k3_flops(n, hw, cin, cm, cout, proj),
+                                    H100_BF16_TFLOPS, nbytes)
+                print(f"K3 {row['shape']} batch {n}: kernel "
+                      f"{row['ms']:.4f} ms, bound {bound * 1e3:.4f} ms "
+                      f"({by}; {100 * bound * 1e3 / row['ms']:.1f} % of "
+                      "it)", flush=True)
         flops = sum(c * k3_flops(int(batch), hw, cin, cm, cout, proj)
                     for hw, cin, cm, cout, proj, c in K3_SHAPES)
         tf = flops / (res["ms"] * 1e-3) / 1e12

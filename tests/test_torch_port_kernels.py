@@ -204,18 +204,23 @@ def test_pack_bottleneck_round_trips(hw, cin, cm, cout, proj):
     p = kw.packed
     assert p is not None and all(t.is_contiguous() and t.dtype ==
                                  torch.bfloat16 for t in p if t is not None)
-    n1, n3 = min(cm, 128), min(cout, 128)
-    assert p.w1.shape == (cm // n1, cin // 32, n1, 32)
-    assert p.w3.shape == (cm // n1, 9, cm // 32, n1, 32)
-    assert p.w2.shape == (cout // n3, cm // 32, n3, 32)
+    n1, n3 = min(cm, 128), 64 if proj else min(cout, 128)
+    assert p.w1.shape == (cm // n1, cin // 16, n1 // 8, 2, 8, 8)
+    assert p.w3.shape == (cm // n1, 9, cm // 16, n1 // 8, 2, 8, 8)
+    assert p.w2.shape == (cout // n3, cm // 16, n3 // 8, 2, 8, 8)
     assert (p.wp is None) == (not proj)
-    # Slab (pass q, K-slab s) row n, physical 16-byte chunk c holds
-    # w1[32 s + 8 (c ^ ((n >> 1) & 3)) + e, n1 q + n], e < 8.
-    q, sl, n, c = cm // n1 - 1, 1, 13, 2
-    logical = c ^ ((n >> 1) & 3)
-    assert torch.equal(p.w1[q, sl, n, 8 * c:8 * c + 8],
-                       kw.w1[32 * sl + 8 * logical:32 * sl + 8 * logical + 8,
-                             n1 * q + n])
+    # The kernel's B operand: K slice s of pass q starts s * n1 * 32 bytes
+    # into the pass; in it, column n's 8-row group n // 8 lies 256 bytes
+    # apart (the descriptor's stride offset), the slice's two 8-row K
+    # halves 128 bytes apart (leading offset), then 16 bytes a column and 2
+    # a K row: element (k, n) of the slice at byte 256 (n // 8) + 128 (k //
+    # 8) + 16 (n % 8) + 2 (k % 8).
+    flat = p.w1[cm // n1 - 1].reshape(-1)
+    for s_, k, n in ((1, 13, 37), (cin // 16 - 1, 2, n1 - 1), (0, 9, 8)):
+        byte = s_ * n1 * 32 + 256 * (n // 8) + 128 * (k // 8) + 16 * (
+            n % 8) + 2 * (k % 8)
+        assert torch.equal(flat[byte // 2],
+                           kw.w1[16 * s_ + k, n1 * (cm // n1 - 1) + n])
     back = resblock.unpack_bottleneck(p)
     for got, want in zip(back, (kw.w1, kw.w3, kw.w2, kw.wp)):
         assert (got is None and want is None) or torch.equal(got, want)
@@ -309,11 +314,33 @@ def test_pack_bottleneck_wide_cm_round_trips(cin, cm, cout, proj):
     resblock._check_packed(kw, torch.device("cpu"))
     pw = resblock.pad_bottleneck(kw)
     cmp_ = resblock.padded_width(cm)
-    assert kw.packed.w3.shape == (cmp_ // 128, 9, cmp_ // 32, 128, 32)
+    assert kw.packed.w3.shape == (cmp_ // 128, 9, cmp_ // 16, 16, 2, 8, 8)
     for got, want in zip(resblock.unpack_bottleneck(kw.packed),
                          (pw.w1, pw.w3, pw.w2, pw.wp)):
         assert (got is None and want is None) or torch.equal(got, want)
     assert torch.equal(kw.vecs.s2[:cm], kw.s2) and not kw.vecs.s2[cm:].any()
+
+
+def _k3_entry_accepts(plan, n, h, w, cin, cm, cout, proj, sms) -> bool:
+    """The checks of ``alink_bottleneck`` (csrc/bottleneck.cu) on the plan
+    the wrapper passes: a tile within a TMA box whose stages fit 3 and 2
+    64-row products, a ring of 2-4 entries within the shared memory, a
+    cluster size of 1, 2 or 4 that divides the passes of every stage and
+    shares exactly one tile, no cluster with global y1/y2."""
+    t = plan.tile
+    geom = resblock.bottleneck_tile(t.th, t.tw)
+    entry, total = resblock._smem(cm, geom, plan.slots, plan.global_act)
+    n1, n3 = min(cm, 128), 64 if proj else min(cout, 128)
+    tiles = n * -(-h // t.th) * -(-w // t.tw)
+    return (geom == t and 1 <= t.th <= h and 1 <= t.tw <= w
+            and t.th + 2 <= 256 and t.tw + 2 <= 256 and t.mt1 <= 3
+            and t.mt2 <= 2 and 2 <= plan.slots <= 4 and total <= 232448
+            and (entry, total) == (plan.entry, plan.smem)
+            and not (plan.global_act and plan.split != 1)
+            and plan.split in (1, 2, 4) and (cm // n1) % plan.split == 0
+            and (cout // n3) % plan.split == 0 and plan.blocks >= 1
+            and tiles == plan.tiles
+            and (plan.split == 1 or plan.blocks == tiles * plan.split))
 
 
 @pytest.mark.parametrize("sms", [132, 114])
@@ -322,24 +349,30 @@ def test_pack_bottleneck_wide_cm_round_trips(cin, cm, cout, proj):
 def test_bottleneck_launch_plan_wide_cm_uses_global_scratch(
         cin, cm, cout, proj, batch, hw, sms):
     """Past Cm 512, y1 and y2 of a tile do not fit shared memory beside a
-    2-entry ring: the plan keeps them in global scratch, without clusters,
-    on at most one block per SM (block b walks tiles b, b + blocks, ...:
-    every tile once), and holds the ring and barriers only; the entry
-    point's checks pass.  VGGFace-ResNet50's shapes keep shared memory."""
+    2-entry ring: the plan keeps them in global scratch (halo + 64 mt2
+    rows a block), without clusters, on at most one block per SM (block b
+    walks tiles b, b + blocks, ...: every tile once), and holds the ring
+    and barriers only; the entry point's checks pass, at batch 1,024 too.
+    VGGFace-ResNet50's shapes keep shared memory at every batch."""
     ci, cmp_, co = (resblock.padded_width(c) for c in (cin, cm, cout))
-    plan = resblock.launch_plan(batch, hw, hw, ci, cmp_, co, proj, sms)
-    assert plan.global_act and plan.split == 1
-    assert 2 <= plan.slots <= 4
-    assert plan.smem == resblock._smem(cmp_, plan.slots, True) <= 232448
-    assert plan.smem == plan.slots * 2 * (128 * 32 * 2 + 112 * 32 * 2) + 80
-    assert plan.blocks == min(plan.tiles, sms)
-    walked = torch.cat([torch.arange(b, plan.tiles, plan.blocks)
-                        for b in range(plan.blocks)])
-    assert torch.equal(torch.sort(walked).values, torch.arange(plan.tiles))
-    for shape in K3_SHAPES:
-        hw0, cin0, cm0, cout0, proj0 = shape
-        assert not resblock.launch_plan(batch, hw0, hw0, cin0, cm0, cout0,
-                                        proj0, sms).global_act
+    for n in (batch, 1024):
+        plan = resblock.launch_plan(n, hw, hw, ci, cmp_, co, proj, sms)
+        t = plan.tile
+        assert plan.global_act and plan.split == 1
+        assert 2 <= plan.slots <= 4
+        assert plan.act_rows == t.halo + 64 * t.mt2
+        assert plan.smem == resblock._smem(cmp_, t, plan.slots, True)[1]
+        assert plan.smem == plan.slots * plan.entry + 80 + 1024 <= 232448
+        assert plan.blocks == min(plan.tiles, sms)
+        assert _k3_entry_accepts(plan, n, hw, hw, ci, cmp_, co, proj, sms)
+        walked = torch.cat([torch.arange(b, plan.tiles, plan.blocks)
+                            for b in range(plan.blocks)])
+        assert torch.equal(torch.sort(walked).values,
+                           torch.arange(plan.tiles))
+        for shape in K3_SHAPES:
+            hw0, cin0, cm0, cout0, proj0 = shape
+            assert not resblock.launch_plan(n, hw0, hw0, cin0, cm0, cout0,
+                                            proj0, sms).global_act
 
 
 def test_padded_plain_block_equals_unpadded_wide_cm():
@@ -350,14 +383,20 @@ def test_padded_plain_block_equals_unpadded_wide_cm():
 @pytest.mark.parametrize("cin,cm,cout,proj", K3_ODD)
 def test_bottleneck_launch_plan_covers_padded_widths(cin, cm, cout, proj):
     """The launch plan at the padded widths passes the entry point's checks
-    (2-4 ring entries in shared memory, a cluster size dividing the
-    passes) at 132 and 114 SMs."""
+    (a tile of whole 64-row products, 2-4 ring entries in shared memory, a
+    cluster size dividing the passes) at 132 and 114 SMs, at batch 1, 32
+    and 1,024."""
     ci, cmp_, co = (resblock.padded_width(c) for c in (cin, cm, cout))
     for sms in (132, 114):
-        plan = resblock.launch_plan(32, 28, 28, ci, cmp_, co, proj, sms)
-        assert 2 <= plan.slots <= 4 and plan.smem <= 232448
-        n1, n3 = min(cmp_, 128), min(co, 128)
-        assert (cmp_ // n1) % plan.split == 0 and (co // n3) % plan.split == 0
+        for n in (1, 32, 1024):
+            plan = resblock.launch_plan(n, 28, 28, ci, cmp_, co, proj, sms)
+            assert 2 <= plan.slots <= 4 and plan.smem <= 232448
+            assert not plan.global_act
+            n1, n3 = min(cmp_, 128), 64 if proj else min(co, 128)
+            assert (cmp_ // n1) % plan.split == 0
+            assert (co // n3) % plan.split == 0
+            assert _k3_entry_accepts(plan, n, 28, 28, ci, cmp_, co, proj,
+                                     sms)
 
 
 def test_bottleneck_kernel_names_the_width_it_refuses():
@@ -368,99 +407,197 @@ def test_bottleneck_kernel_names_the_width_it_refuses():
     wts = resblock.kernel_weights(_k3_weights(64, 576, 64, True, 3),
                                   torch.device("cpu"))
     resblock._check_packed(wts, torch.device("cpu"))
-    assert wts.packed.w3.shape == (5, 9, 20, 128, 32)
+    assert wts.packed.w3.shape == (5, 9, 40, 16, 2, 8, 8)
     with pytest.raises(ValueError, match="x has 48 channels"):
         resblock.bottleneck_s1_kernel(torch.zeros(1, 4, 4, 48), wts)
     with pytest.raises(ValueError, match="CUDA"):
         resblock.bottleneck_s1_kernel(torch.zeros(1, 4, 4, 64), wts)
 
 
-@pytest.mark.parametrize("batch", [32, 256])
+# The tiles launch_plan picks at VGGFace-ResNet50's five shapes (th, tw):
+# 4 x 28 at 55^2 (2 x 14 tiles, one column past the image) and 28^2, 7 x
+# 14 at 14^2, the whole image at 7^2.
+K3_TILES = {55: (4, 28), 28: (4, 28), 14: (7, 14), 7: (7, 7)}
+
+
+@pytest.mark.parametrize("batch", [1, 32, 256, 1024])
 @pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)
 def test_bottleneck_launch_plan_covers_each_output_once(hw, cin, cm, cout,
                                                         proj, batch):
     plan = resblock.launch_plan(batch, hw, hw, cin, cm, cout, proj)
+    t = plan.tile
+    assert (t.th, t.tw) == K3_TILES[hw]
     assert plan.smem <= 232448 and 2 <= plan.slots <= 4
     assert plan.tiles == batch * plan.tiles_x * plan.tiles_y
-    # A cluster shares a tile only where the tiles are fewer than half the
-    # SMs: at 7x7, batch 32 (32 tiles, 4 blocks each); never at batch 256.
-    assert plan.split == (4 if (hw, batch) == (7, 32) else 1)
-    # Short tiles (Cm <= 128) outnumbering the SMs are walked by one
-    # persistent block per SM; otherwise one block per tile.
-    persistent = cm <= 128 and plan.tiles > 132
+    # A cluster shares a tile only where 2 or 4 blocks a tile still fit the
+    # SMs: 7x7 at batch 32 (32 tiles, 4 blocks each), 14x14 at batch 32
+    # (64 tiles, 2 each; 256 columns of y1 are 2 passes), and those two
+    # at batch 1 (28^2's tiles, 7, and 55^2's single pass of 64 columns
+    # take none).
+    want_split = {(7, 32): 4, (14, 32): 2, (7, 1): 4, (14, 1): 2}
+    assert plan.split == want_split.get((hw, batch), 1)
+    # Tiles outnumbering the SMs are walked by one persistent block per
+    # SM; otherwise one block (or cluster) per tile.
+    persistent = plan.split == 1 and plan.tiles > 132
     assert plan.blocks == (132 if persistent else plan.tiles * plan.split)
     # Block b walks tiles b, b + blocks / split, ...: every tile once.
     step = plan.blocks // plan.split
     walked = torch.cat([torch.arange(b, plan.tiles, step)
                         for b in range(step)])
     assert torch.equal(torch.sort(walked).values, torch.arange(plan.tiles))
-    # The 8 x 8 tiles of one image cover each output pixel once.
-    hits = torch.zeros(plan.tiles_y * 8, plan.tiles_x * 8, dtype=torch.int64)
+    # The th x tw tiles of one image cover each output pixel once.
+    hits = torch.zeros(plan.tiles_y * t.th, plan.tiles_x * t.tw,
+                       dtype=torch.int64)
     for ty in range(plan.tiles_y):
         for tx in range(plan.tiles_x):
-            hits[8 * ty:8 * ty + 8, 8 * tx:8 * tx + 8] += 1
+            hits[t.th * ty:t.th * (ty + 1), t.tw * tx:t.tw * (tx + 1)] += 1
     assert bool((hits[:hw, :hw] == 1).all())
-    # The 3x3's 80 flat rows (8 rows of the 10-wide halo) read y1 rows
-    # r + 10 dy + dx, inside the 102 rows of y1 (guard row included).
-    r = torch.arange(80)
-    reads = torch.stack([r + 10 * dy + dx for dy in range(3)
+    # The 3x3's 64 mt2 flat rows read y1 rows q + hs dy + dx: a kept row
+    # (column < tw, row < th) reads inside the halo; every read lies inside
+    # y1 and y2 (halo + 64 mt2 rows), which follow one another.  The
+    # projection's reads (q + hs + 1) lie inside the ring's x rows.
+    q = torch.arange(64 * t.mt2)
+    kept = (q % t.hs < t.tw) & (q // t.hs < t.th)
+    reads = torch.stack([q + t.hs * dy + dx for dy in range(3)
                          for dx in range(3)])
-    assert int(reads.min()) >= 0 and int(reads.max()) < 102
-    # Over the blocks of a tile, the schedules visit every (K slab, column
-    # pass) of W1, of each tap of W3, of W2 and of Wp once, each block in
-    # pairs of slabs (one ring entry), and end each pass with its epilogue.
+    assert int(reads[:, kept].max()) < t.halo
+    assert int(reads.max()) < t.halo + 64 * t.mt2
+    assert 64 * t.mt2 + t.hs + 1 <= t.xrows and t.halo <= 64 * t.mt1
+    assert 64 * t.mt1 <= t.xrows
+    # Over the blocks of a tile, the ring entries visit every (64-row K
+    # chunk, column pass) of W1, of each tap of W3, of W2 and of Wp once;
+    # an entry holds one chunk with its x (stage 1, the projection) or up
+    # to 4 consecutive chunks of one pass within its bytes; each pass ends
+    # with its epilogue.
     assert len(plan.schedule) == plan.split
+    n1, n3 = min(cm, 128), 64 if proj else min(cout, 128)
     seen = {}
     for sched in plan.schedule:
-        assert len(sched) % 2 == 0
-        for (s0, q0, t0, *_), (s1, q1, t1, *_) in zip(sched[::2],
-                                                      sched[1::2]):
-            assert (s0, q0, t0) == (s1, q1, t1)
-        for stage, pas, tap, k0, pr, last in sched:
-            key = (stage, pas, tap, k0, pr)
-            seen[key] = seen.get(key, 0) + 1
+        for entry in sched:
+            stages = {(c[0], c[1], c[4]) for c in entry}
+            assert len(stages) == 1 and 1 <= len(entry) <= 4
+            stage, pas, pr = stages.pop()
+            np_ = n3 if stage == 3 else n1
+            if stage == 1 or pr:
+                assert len(entry) == 1
+            assert len(entry) * np_ * 64 * 2 <= plan.entry
+            for chunk in entry:
+                seen[chunk[:5]] = seen.get(chunk[:5], 0) + 1
     assert set(seen.values()) == {1}
-    n1, n3 = min(cm, 128), min(cout, 128)
     want = ({(1, q, 0, k, False) for q in range(cm // n1)
-             for k in range(0, cin, 32)}
-            | {(2, q, t, k, False) for q in range(cm // n1) for t in range(9)
-               for k in range(0, cm, 32)}
+             for k in range(0, cin, 64)}
+            | {(2, q, t_, k, False) for q in range(cm // n1)
+               for t_ in range(9) for k in range(0, cm, 64)}
             | {(3, q, 0, k, False) for q in range(cout // n3)
-               for k in range(0, cm, 32)}
+               for k in range(0, cm, 64)}
             | {(3, q, 0, k, True) for q in range(cout // n3)
-               for k in range(0, cin if proj else 0, 32)})
+               for k in range(0, cin if proj else 0, 64)})
     assert set(seen) == want
-    ends = [(s, q) for sched in plan.schedule
-            for s, q, *_, last in sched if last]
+    ends = [(c[0], c[1]) for sched in plan.schedule for entry in sched
+            for c in entry if c[5]]
     assert len(ends) == len(set(ends)) == 2 * (cm // n1) + cout // n3
 
 
 @pytest.mark.parametrize("sms", [132, 114])
-@pytest.mark.parametrize("batch", [32, 64, 256])
+@pytest.mark.parametrize("batch", [1, 32, 64, 256, 1024])
 @pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)
 def test_bottleneck_launch_plan_passes_the_entry_points_checks(
         hw, cin, cm, cout, proj, batch, sms):
     """``alink_bottleneck`` (csrc/bottleneck.cu) launches the plan it is
-    given only if its ring has 2-4 entries within the shared memory, its
-    cluster size is 1, 2 or 4 and divides the passes of every stage, and a
-    cluster shares exactly one tile (its y1/y2 barriers complete once)."""
+    given only if its tile fits a TMA box and 3 and 2 64-row products, its
+    ring has 2-4 entries within the shared memory, its cluster size is 1,
+    2 or 4 and divides the passes of every stage, and a cluster shares
+    exactly one tile (its y1/y2 barriers complete once)."""
     plan = resblock.launch_plan(batch, hw, hw, cin, cm, cout, proj, sms)
-    n1, n3 = min(cm, 128), min(cout, 128)
-    assert 2 <= plan.slots <= 4 and plan.smem <= 232448
-    assert plan.smem == resblock._smem(cm, plan.slots)
-    assert plan.split in (1, 2, 4)
-    assert (cm // n1) % plan.split == 0 and (cout // n3) % plan.split == 0
-    assert plan.blocks >= 1
+    assert _k3_entry_accepts(plan, batch, hw, hw, cin, cm, cout, proj, sms)
+    assert not plan.global_act
     if plan.split > 1:
         assert plan.blocks == plan.tiles * plan.split <= sms
-    # Clusters only where the tiles are fewer than half the SMs, as large as
-    # the card holds: 7x7 at batch 32 on 132 SMs takes clusters of 4, on
-    # 114 (128 blocks would not fit) of 2; batch 64 takes 2 on 132 only.
-    want = {(7, 32, 132): 4, (7, 32, 114): 2, (7, 64, 132): 2}
-    assert plan.split == want.get((hw, batch, sms), 1)
-    # Persistent blocks, one per SM, where short tiles outnumber the SMs.
-    persistent = cm <= 128 and plan.tiles > sms
+    # Clusters where 2 or 4 blocks a tile still fit the card, as large as
+    # divides the passes: 7x7 at batch 32 on 132 SMs takes clusters of 4,
+    # on 114 (128 blocks would not fit) of 2; batch 64 takes 2 on 132
+    # only; 14x14 (2 passes of y1) at most 2, at batch 32 on 132 only.
+    want = {(7, 32, 132): 4, (7, 32, 114): 2, (7, 64, 132): 2,
+            (14, 32, 132): 2}
+    if batch == 1:
+        want_split = {55: 1, 28: 1, 14: 2, 7: 4}[hw]
+    else:
+        want_split = want.get((hw, batch, sms), 1)
+    assert plan.split == want_split
+    # Persistent blocks, one per SM, where the tiles outnumber the SMs.
+    persistent = plan.split == 1 and plan.tiles > sms
     assert plan.blocks == (sms if persistent else plan.tiles * plan.split)
+
+
+@pytest.mark.parametrize("batch", [1, 32, 1024])
+@pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)
+def test_bottleneck_tile_stages_fill_64_row_products(hw, cin, cm, cout,
+                                                     proj, batch):
+    """Every stage's computed rows are whole 64-row wgmma products (stage 1
+    on the halo, stages 2 and 3 on the tile's flat rows), within the 3 and
+    2 products a warpgroup's accumulators hold, and the block's shared
+    memory (y1, y2, ring, barriers, alignment) stays within the H100's 227
+    KB.  The tile holds the 49 outputs of a 7x7 image and, past 7x7, more
+    than the 64 of an 8x8 tile, and computes under 1.35 rows of the 3x3
+    and the expand a kept output."""
+    plan = resblock.launch_plan(batch, hw, hw, cin, cm, cout, proj)
+    t = plan.tile
+    rows1, rows23 = 64 * t.mt1, 64 * t.mt2
+    assert rows1 % 64 == 0 and rows23 % 64 == 0
+    assert rows1 >= t.halo == (t.th + 2) * (t.tw + 2)
+    assert rows23 >= t.th * t.hs and t.hs == t.tw + 2
+    assert t.mt1 <= 3 and t.mt2 <= 2
+    assert plan.smem == resblock._smem(cm, t, plan.slots)[1] <= 232448
+    outputs = t.th * t.tw
+    assert outputs >= (49 if hw == 7 else 65)
+    assert rows23 / outputs < 1.35
+
+
+def _flat_row_3x3(y: torch.Tensor, w3: torch.Tensor, th: int,
+                  tw: int) -> torch.Tensor:
+    """The kernel's 3x3 on the CPU: per tile, y's halo in flat rows of
+    stride tw + 2 (zeros outside the image, NaN in every row past the halo
+    and in y2's rows that follow it), the 9 taps as row offsets over whole
+    64-row products, kept rows only written."""
+    n, h, w, c = y.shape
+    t = resblock.bottleneck_tile(th, tw)
+    out = torch.full((n, h, w, w3.shape[-1]), float("nan"),
+                     dtype=torch.float64)
+    for img in range(n):
+        for ty0 in range(0, h, th):
+            for tx0 in range(0, w, tw):
+                buf = torch.full((t.halo + 64 * t.mt2, c), float("nan"),
+                                 dtype=torch.float64)
+                for r in range(t.halo):
+                    py, px = ty0 - 1 + r // t.hs, tx0 - 1 + r % t.hs
+                    inside = 0 <= py < h and 0 <= px < w
+                    buf[r] = y[img, py, px] if inside else 0.0
+                acc = sum(buf[t.hs * dy + dx:t.hs * dy + dx + 64 * t.mt2]
+                          @ w3[dy, dx] for dy in range(3) for dx in range(3))
+                for q in range(64 * t.mt2):
+                    oy, ox = ty0 + q // t.hs, tx0 + q % t.hs
+                    if q // t.hs < th and q % t.hs < tw and oy < h and ox < w:
+                        out[img, oy, ox] = acc[q]
+    return out
+
+
+@pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)
+def test_bottleneck_flat_row_3x3_equals_same_conv(hw, cin, cm, cout, proj):
+    """The tile's flat-row 3x3 (tap offsets on the row stride tw + 2, the
+    dropped columns, the zero halo) at the tile ``launch_plan`` picks for
+    each VGGFace shape equals a SAME 3x3 convolution, on small random
+    inputs of that image size (4 channels) in float64; rows that only
+    dropped outputs read hold NaN and none reaches the result."""
+    t = resblock.launch_plan(32, hw, hw, cin, cm, cout, proj).tile
+    g = torch.Generator().manual_seed(hw)
+    y = torch.randn((2, hw, hw, 4), generator=g, dtype=torch.float64)
+    w3 = torch.randn((3, 3, 4, 3), generator=g, dtype=torch.float64)
+    got = _flat_row_3x3(y, w3, t.th, t.tw)
+    want = torch.nn.functional.conv2d(
+        y.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 def test_bottleneck_kernel_refuses_unpacked_weights():
@@ -478,7 +615,7 @@ def test_bottleneck_kernel_refuses_unpacked_weights():
                                   torch.device("cpu"))
     assert odd.packed is not None and resblock.kernel_takes(32, 16, 64)
     resblock._check_packed(odd, torch.device("cpu"))
-    assert odd.packed.w1.shape == (1, 2, 64, 32)
+    assert odd.packed.w1.shape == (1, 4, 8, 2, 8, 8)
     assert resblock.kernel_takes(96, 64, 64)
     assert resblock.kernel_takes(128, 512, 64)
     assert resblock.kernel_takes(64, 513, 256)

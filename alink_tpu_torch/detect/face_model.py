@@ -4,8 +4,11 @@
 The embedder and the cascade towers carry their own weights and device;
 images may arrive as numpy arrays or tensors on any device and are moved
 to the embedder's device.  The cascade's options (crowd budgets, L-Net,
-crop dtype) come with ``cfg`` through ``detect_faces``.  JAX's
-``__setattr__`` only drops stale jit traces and has no counterpart here.
+crop dtype) come with ``cfg`` through ``detect_faces``.  A ``detector``
+(``detect.retina.RetinaFaceDetector``, the port's own) takes the
+cascade's place where one is given; alignment, the found mask and the
+embedder are the same for both.  JAX's ``__setattr__`` only drops stale
+jit traces and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,16 +32,26 @@ class FaceModel:
         embedder: an embedder module, ArcFace or the ViT
             (``(N, 112, 112, 3) -> (N, D)``).
         cascade_params: MTCNN towers, or None to skip detection (images are
-            then pre-cropped faces, resized to ``cfg.output_size``).
-        cfg: cascade budgets and thresholds.
+            then pre-cropped faces, resized to ``cfg.output_size``) unless a
+            ``detector`` is given.
+        cfg: cascade budgets and thresholds, and the chips' size.
+        detector: a callable (N, H, W, 3) photos -> ``Detections`` that
+            detects in the cascade's place (``RetinaFaceDetector``), or
+            None for the cascade.
     """
 
     def __init__(self, embedder: nn.Module,
                  cascade_params: MTCNNParams | None = None,
-                 cfg: CascadeConfig = CascadeConfig()):
+                 cfg: CascadeConfig = CascadeConfig(), detector=None):
         self.embedder = embedder.eval()
         self.cascade_params = cascade_params
         self.cfg = cfg
+        self.detector = detector
+
+    @property
+    def detects(self) -> bool:
+        """Whether photos go through a detector (else they are faces)."""
+        return self.detector is not None or self.cascade_params is not None
 
     @property
     def device(self) -> torch.device:
@@ -50,10 +63,14 @@ class FaceModel:
         return torch.as_tensor(images, device=self.device)
 
     def detect(self, images) -> Detections:
-        if self.cascade_params is None:
+        if not self.detects:
             raise ValueError("no cascade params loaded (detection disabled)")
-        return detect_faces(self.cascade_params, self._to_device(images),
-                            self.cfg)
+        return self._detect(self._to_device(images))
+
+    def _detect(self, images: torch.Tensor) -> Detections:
+        if self.detector is not None:
+            return self.detector(images)
+        return detect_faces(self.cascade_params, images, self.cfg)
 
     @torch.no_grad()
     def _best_chips(self, images: torch.Tensor
@@ -66,7 +83,7 @@ class FaceModel:
         zero.  Such a chip is zeroed with a ``where`` (not a multiply: it
         may have warped to NaN, and 0 * NaN is NaN).
         """
-        det = detect_faces(self.cascade_params, images, self.cfg)
+        det = self._detect(images)
         with span("align"):
             neg = torch.finfo(det.scores.dtype).min
             best = torch.argmax(torch.where(det.valid, det.scores, neg),
@@ -86,7 +103,7 @@ class FaceModel:
     def get_input_valid(self, images) -> tuple[torch.Tensor, torch.Tensor]:
         """(chips, found): ``get_input`` plus the per-image found mask."""
         images = self._to_device(images)
-        if self.cascade_params is None:
+        if not self.detects:
             chips = resize(images, self.cfg.output_size)
             return chips, torch.ones(images.shape[0], dtype=torch.bool,
                                      device=images.device)
@@ -99,7 +116,7 @@ class FaceModel:
 
     def process(self, images) -> torch.Tensor:
         """End to end: raw images -> embeddings (zero chip where no face)."""
-        if self.cascade_params is None:
+        if not self.detects:
             return self.get_feature(self.get_input(images))
         return self.pipeline(images)
 

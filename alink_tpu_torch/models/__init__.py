@@ -10,7 +10,9 @@ from alink_tpu_torch.models.classify import (ResNet50Classifier,
 from alink_tpu_torch.models.genderage import (GenderAgeHead,
                                               GenderAgeResNet50, decode_ga)
 from alink_tpu_torch.models.mtcnn import LNet, ONet, PNet, RNet
-from alink_tpu_torch.models.resnet import SENet50, VGGFace16, VGGFaceResNet50
+from alink_tpu_torch.models.resnet import (ResNet50V15, SENet50, VGGFace16,
+                                           VGGFaceResNet50)
+from alink_tpu_torch.models.retinaface import RetinaFaceR50
 from alink_tpu_torch.models.siamese import SiameseHead, SmallRes, SmallResTower
 from alink_tpu_torch.models.vit import FaceViT, FaceViT_L
 
@@ -19,4 +21,5 @@ __all__ = ["preprocess", "ArcFaceResNet34", "ArcFaceResNet50",
            "SmallResClassifier", "VGG16Classifier", "GenderAgeHead",
            "GenderAgeResNet50", "decode_ga", "LNet", "ONet", "PNet", "RNet",
            "SENet50", "VGGFace16", "SiameseHead", "SmallRes", "SmallResTower",
-           "VGGFaceResNet50", "FaceViT", "FaceViT_L"]
+           "VGGFaceResNet50", "FaceViT", "FaceViT_L", "ResNet50V15",
+           "RetinaFaceR50"]

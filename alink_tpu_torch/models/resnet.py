@@ -11,6 +11,16 @@ strided blocks are plain PyTorch in bf16.  ``trainable=True`` gives the
 classifier's backbone (``models/classify.py``): every parameter, BN
 statistics included, trains, and the stride-1 blocks fold on every forward.
 
+``ResNet50V15`` is torchvision's ResNet-50 (v1.5: a strided block's stride
+on its 3x3) to its three last stages' maps, RetinaFace-R50's backbone
+(``models/retinaface.py``).  Both ResNet-50s share ``_FusedTrunk``: the
+bottlenecks by stage, the 13 stride-1 ones through ``bottleneck_chain``
+with their weights folded into K3's layout once and cached.  The
+torchvision trunk's stem and strided blocks are cuDNN convolutions in
+``dtype`` with each BN folded into its convolution's weights and bias
+(cached beside K3's weights), where the keras trunk applies its BNs
+unfolded.
+
 ``SENet50`` (keras_vggface senet50, 2048-d) and ``VGGFace16`` (vgg16 to its
 NHWC-flattened pool5, 25,088-d at 224^2) back the identification
 classifiers only; they run as cuDNN convolutions in ``dtype``: SENet50's SE
@@ -34,6 +44,7 @@ from alink_tpu_torch.ops.resblock import (BottleneckWeights, bottleneck_chain,
 
 KERAS_BN_EPS = 1e-3
 MXNET_BN_EPS = 2e-5
+TORCH_BN_EPS = 1e-5
 
 
 class _FrozenBN(nn.Module):
@@ -117,7 +128,8 @@ class _Bottleneck(nn.Module):
     """
 
     def __init__(self, cin: int, filters: int, project: bool, dtype,
-                 generator, device, trainable: bool = False):
+                 generator, device, trainable: bool = False,
+                 eps: float = KERAS_BN_EPS):
         super().__init__()
         f = filters
         self.dtype = dtype
@@ -128,7 +140,7 @@ class _Bottleneck(nn.Module):
             + ([_make_conv(cin, 4 * f, 1, False, generator, device)]
                if project else []))
         self.bn = nn.ModuleList(
-            _FrozenBN(c, KERAS_BN_EPS, dtype, device, trainable)
+            _FrozenBN(c, eps, dtype, device, trainable)
             for c in (f, f, 4 * f) + ((4 * f,) if project else ()))
 
     def strided(self, y: torch.Tensor) -> torch.Tensor:
@@ -140,6 +152,27 @@ class _Bottleneck(nn.Module):
         z = torch.relu(self.bn[1](F.conv2d(z, w[1], padding=1)))
         z = self.bn[2](F.conv2d(z, w[2]))
         return torch.relu(z + self.bn[3](F.conv2d(ys, w[3])))
+
+
+def fold_conv(conv: nn.Conv2d, bn: _FrozenBN, dtype: torch.dtype
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A bias-free convolution followed by a frozen BN as one convolution:
+    (weight * scale, shift), folded in f32 and cast to ``dtype``."""
+    s, b = _fold_bn(bn)
+    return ((conv.weight * s.reshape(-1, 1, 1, 1)).to(dtype).contiguous(),
+            b.to(dtype))
+
+
+def _strided_v15(y: torch.Tensor, folded) -> torch.Tensor:
+    """torchvision's strided bottleneck (v1.5: the stride on the 3x3, pad
+    1, and on the projection) on NCHW ``y``, from ``fold_conv``'s (weight,
+    bias) of its four convolutions: cuDNN convolutions with the bias, the
+    ReLUs in place."""
+    (w1, b1), (w3, b3), (w2, b2), (wp, bp) = folded
+    z = torch.relu_(F.conv2d(y, w1, b1))
+    z = torch.relu_(F.conv2d(z, w3, b3, stride=2, padding=1))
+    z = F.conv2d(z, w2, b2)
+    return torch.relu_(z.add_(F.conv2d(y, wp, bp, stride=2)))
 
 
 def bottleneck_weights(block: _Bottleneck) -> BottleneckWeights:
@@ -177,7 +210,96 @@ def _stem(x: torch.Tensor, conv: nn.Conv2d, bn: _FrozenBN,
     return F.max_pool2d(torch.relu(bn(y)), 3, 2)
 
 
-class VGGFaceResNet50(nn.Module):
+class FoldCache(nn.Module):
+    """A frozen module whose weights are prepared for inference (BN folded,
+    laid out for a kernel) once per device and cached: ``_cached(device,
+    build)``.  Loading a state dict or moving the module drops the cache,
+    and ``refold()`` drops it, and every such submodule's, after an edit in
+    place."""
+
+    def __init__(self):
+        super().__init__()
+        self._folded: tuple[torch.device, object] | None = None
+        self.register_load_state_dict_post_hook(_drop_folded)
+
+    def refold(self) -> None:
+        """Drop the cached weights; the next forward prepares them."""
+        for m in self.modules():
+            if isinstance(m, FoldCache):
+                m._folded = None
+
+    def _apply(self, fn, recurse=True):
+        self._folded = None
+        return super()._apply(fn, recurse)
+
+    def _cached(self, device, build: Callable):
+        if self._folded is None or self._folded[0] != device:
+            self._folded = (device, build())
+        return self._folded[1]
+
+
+class _FusedTrunk(FoldCache):
+    """What both ResNet-50s share: bottleneck stages of ``stage_sizes``
+    blocks (``self.blocks``, built by the subclass), whose stride-1 blocks
+    (every block of stage 1, all but the first of the later stages) run
+    through ``bottleneck_chain``.
+
+    Frozen (``trainable`` False), their weights are folded into the
+    kernel's layout once and cached (``FoldCache``) with whatever
+    ``_prepare_more`` adds (the torchvision trunk's folded cuDNN weights).
+    Trainable, the blocks fold on every forward, inside autograd when grad
+    is enabled."""
+
+    def __init__(self, stage_sizes: Sequence[int], trainable: bool):
+        super().__init__()
+        self.stage_sizes = tuple(stage_sizes)
+        self.trainable = trainable
+
+    def _fold(self) -> list[tuple[BottleneckWeights, ...]]:
+        """Each stage's stride-1 blocks, BN folded (differentiable f32)."""
+        stages, idx = [], 0
+        for stage, n_blocks in enumerate(self.stage_sizes):
+            first = 1 if stage > 0 else 0
+            stages.append(tuple(
+                bottleneck_weights(blk)
+                for blk in self.blocks[idx + first:idx + n_blocks]))
+            idx += n_blocks
+        return stages
+
+    def _prepare_more(self):
+        """What a subclass caches beside K3's weights (nothing here)."""
+        return None
+
+    def _prepared(self, device) -> tuple[list[tuple[BottleneckWeights, ...]],
+                                         object]:
+        """(the stride-1 blocks' weights, ``_prepare_more()``): for a
+        frozen model the blocks in the kernel's layout on ``device``
+        (``ops.resblock.kernel_weights``), all cached; for a trainable one
+        folded anew (``bottleneck_chain`` lays them out for the kernel)."""
+        if self.trainable:
+            return self._fold(), self._prepare_more()
+        return self._cached(device, lambda: ([
+            tuple(kernel_weights(w, device) for w in run)
+            for run in self._fold()], self._prepare_more()))
+
+    def _stages(self, y: torch.Tensor, runs, strided: Callable,
+                chain: Callable) -> list[torch.Tensor]:
+        """Each stage's output from the stem's NCHW ``y``: the stage's
+        first block by ``strided(y, index)`` past stage 1, then its
+        stride-1 blocks by ``chain`` (NHWC in and out)."""
+        outs, idx = [], 0
+        for stage, run in enumerate(runs):
+            if stage > 0:
+                y = strided(y, idx)
+            idx += self.stage_sizes[stage]
+            if run:
+                y = chain(y.permute(0, 2, 3, 1), run)
+                y = y.permute(0, 3, 1, 2).to(self.dtype)
+            outs.append(y)
+        return outs
+
+
+class VGGFaceResNet50(_FusedTrunk):
     """keras_vggface resnet50 to the flattened avg_pool: (N, H, W, 3)
     preprocessed NHWC -> (N, 2048) f32.
 
@@ -190,9 +312,7 @@ class VGGFaceResNet50(nn.Module):
 
     Frozen (the default, the teacher): the parameters do not require grad,
     BN statistics are buffers, and the stride-1 blocks' weights are folded
-    into the kernel's layout once and cached; loading a state dict or
-    moving the module drops the cache.  Call ``refold()`` after editing
-    parameters in place.
+    into the kernel's layout once and cached (``_FusedTrunk``).
 
     ``trainable=True`` (the classifier's backbone): every parameter trains,
     BN gamma, beta, mean and var included (parameters, as in the JAX
@@ -207,10 +327,8 @@ class VGGFaceResNet50(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None, device=None,
                  trainable: bool = False):
-        super().__init__()
-        self.stage_sizes = tuple(stage_sizes)
+        super().__init__(stage_sizes, trainable)
         self.dtype = dtype
-        self.trainable = trainable
         self.conv = nn.ModuleList([_make_conv(3, 64, 7, False, generator,
                                               device)])
         self.bn = nn.ModuleList([_FrozenBN(64, KERAS_BN_EPS, dtype, device,
@@ -226,40 +344,6 @@ class VGGFaceResNet50(nn.Module):
         if not trainable:
             # The frozen teacher: gradients flow to the input only (FGSM).
             self.requires_grad_(False)
-        self._folded: tuple[torch.device, list] | None = None
-        self.register_load_state_dict_post_hook(_drop_folded)
-
-    def refold(self) -> None:
-        """Drop the cached stride-1 weights; the next forward folds them."""
-        self._folded = None
-
-    def _apply(self, fn, recurse=True):
-        self.refold()
-        return super()._apply(fn, recurse)
-
-    def _fold(self) -> list[tuple[BottleneckWeights, ...]]:
-        """Each stage's stride-1 blocks, BN folded (differentiable f32)."""
-        stages, idx = [], 0
-        for stage, n_blocks in enumerate(self.stage_sizes):
-            first = 1 if stage > 0 else 0
-            stages.append(tuple(
-                bottleneck_weights(blk)
-                for blk in self.blocks[idx + first:idx + n_blocks]))
-            idx += n_blocks
-        return stages
-
-    def _stride1_weights(self, device) -> list[tuple[BottleneckWeights, ...]]:
-        """The stride-1 blocks' weights: for a frozen model in the kernel's
-        layout on ``device`` (``ops.resblock.kernel_weights``) and cached;
-        for a trainable one folded anew (``bottleneck_chain`` lays them out
-        for the kernel)."""
-        if self.trainable:
-            return self._fold()
-        if self._folded is None or self._folded[0] != device:
-            self._folded = (device, [
-                tuple(kernel_weights(w, device) for w in run)
-                for run in self._fold()])
-        return self._folded[1]
 
     def forward(self, x: torch.Tensor,
                 chain: Callable = bottleneck_chain) -> torch.Tensor:
@@ -270,23 +354,78 @@ class VGGFaceResNet50(nn.Module):
         (FGSM): the stride-1 blocks then give dx only; inference callers
         run it under ``torch.no_grad``.  Trainable, it is differentiable in
         ``x`` and every parameter."""
-        dt = self.dtype
-        y = _stem(x, self.conv[0], self.bn[0], dt)
-        idx = 0
-        for stage, run in enumerate(self._stride1_weights(x.device)):
-            if stage > 0:
-                y = self.blocks[idx].strided(y)
-            idx += self.stage_sizes[stage]
-            if run:
-                # Divergence from the JAX default forward: fused-block
-                # numerics (f32 BN epilogues) here on every device, where
-                # flax runs bf16 BN; relative max error <= 0.02 between them.
-                y = chain(y.permute(0, 2, 3, 1), run).permute(0, 3, 1,
-                                                              2).to(dt)
+        y = _stem(x, self.conv[0], self.bn[0], self.dtype)
+        runs, _ = self._prepared(x.device)
+        # Divergence from the JAX default forward: fused-block numerics
+        # (f32 BN epilogues) in the stride-1 blocks on every device, where
+        # flax runs bf16 BN; relative max error <= 0.02 between them.
+        y = self._stages(y, runs, lambda t, i: self.blocks[i].strided(t),
+                         chain)[-1]
         return y.float().mean(dim=(2, 3))
 
 
-def _drop_folded(module: VGGFaceResNet50, incompatible_keys) -> None:
+class ResNet50V15(_FusedTrunk):
+    """torchvision's ResNet-50 (v1.5) without its pool and classifier:
+    (N, 3, H, W) NCHW input in ``dtype`` -> the outputs of stages 2, 3 and
+    4 (C3, C4, C5: 512, 1,024 and 2,048 channels at H / 8, / 16, / 32),
+    NCHW in ``dtype`` (channels-last memory on the cuDNN path).
+
+    Stem: 7x7 stride-2 convolution, padding 3, BN, ReLU, 3x3 stride-2
+    max-pool, padding 1.  Stages (3, 4, 6, 3) of 1x1 -> 3x3 -> 1x1
+    bottlenecks, widths 64 to 512 (x 4 out); the first block of each stage
+    projects its shortcut, and past stage 1 has stride 2 on its 3x3 and on
+    the projection (``_strided_v15``).  Frozen BN with eps 1e-5, folded
+    into the stem's and the strided blocks' convolutions (cuDNN in
+    ``dtype``); the 13 stride-1 blocks run on K3 (``_FusedTrunk``).
+    Inference only: the parameters do not require grad."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 widths: Sequence[int] = (64, 128, 256, 512),
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__(stage_sizes, trainable=False)
+        self.dtype = dtype
+        self.widths = tuple(widths)
+        stem = self.widths[0]
+        self.conv = nn.ModuleList([_make_conv(3, stem, 7, False, generator,
+                                              device)])
+        self.bn = nn.ModuleList([_FrozenBN(stem, TORCH_BN_EPS, dtype,
+                                           device)])
+        blocks, cin = [], stem
+        for blocks_n, w in zip(self.stage_sizes, self.widths):
+            for b in range(blocks_n):
+                blocks.append(_Bottleneck(cin, w, b == 0, dtype, generator,
+                                          device, eps=TORCH_BN_EPS))
+                cin = 4 * w
+        self.blocks = nn.ModuleList(blocks)
+        self.channels = tuple(4 * w for w in self.widths[1:])
+        self.requires_grad_(False)
+
+    def _prepare_more(self):
+        """The stem's and each strided block's convolutions with their BN
+        folded (``fold_conv``), keyed by block index."""
+        dt = self.dtype
+        strided, idx = {}, 0
+        for n_blocks in self.stage_sizes:
+            if idx:
+                blk = self.blocks[idx]
+                strided[idx] = [fold_conv(c, b, dt)
+                                for c, b in zip(blk.conv, blk.bn)]
+            idx += n_blocks
+        return fold_conv(self.conv[0], self.bn[0], dt), strided
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, chain: Callable = bottleneck_chain
+                ) -> list[torch.Tensor]:
+        runs, (stem, strided) = self._prepared(x.device)
+        y = torch.relu_(F.conv2d(x.to(self.dtype), *stem, stride=2,
+                                 padding=3))
+        y = F.max_pool2d(y, 3, 2, padding=1)
+        return self._stages(y, runs, lambda t, i: _strided_v15(t, strided[i]),
+                            chain)[1:]
+
+
+def _drop_folded(module: FoldCache, incompatible_keys) -> None:
     module.refold()
 
 

@@ -4,15 +4,24 @@ Counterpart of ``alink_tpu/ops/nms.py``.  The keep-mask equals greedy NMS
 (candidates visited by descending score, ties to the lower index; a box is
 suppressed when its overlap with a kept earlier box is strictly above the
 threshold; inclusive-pixel areas; ``mode="min"`` divides by the smaller
-area).  One implementation serves every budget: the JAX package's blocked
+area).  ``nms`` serves the cascade's budgets: the JAX package's blocked
 path for K >= 256 is a TPU scheduling choice with the same result.
+
+``nms_kernel`` gives ``nms``'s union-mode keep-mask for any K without a
+K x K array, on candidates already in visit order (as
+``ops.boxes.select_topk`` returns them): ``csrc/nms.cu`` writes one bit a
+pair (the overlap above the threshold) in 64-candidate words and sweeps
+them greedily on the device, one block a photo, with no host sync.
 """
 
 from __future__ import annotations
 
 import torch
 
+from alink_tpu_torch import _build
 from alink_tpu_torch.utils.profiling import count, span
+
+WORD = 64        # candidates a mask word of csrc/nms.cu covers
 
 
 def iou_matrix(boxes: torch.Tensor, mode: str = "union") -> torch.Tensor:
@@ -67,3 +76,50 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 def nms_batch(boxes, scores, valid, threshold, mode="union") -> torch.Tensor:
     """``nms`` over a leading batch axis (``nms`` takes any leading dims)."""
     return nms(boxes, scores, valid, threshold, mode=mode)
+
+
+def _launch(boxes: torch.Tensor, valid: torch.Tensor,
+            threshold: float) -> torch.Tensor:
+    """The CUDA implementation of the ``alink_tpu_torch::nms`` op: the mask
+    scratch (n x k x ceil(k / 64) words) and the keep flags allocated here,
+    ``alink_nms`` launched on the current stream."""
+    n, k = valid.shape
+    keep = torch.empty((n, k), dtype=torch.bool, device=valid.device)
+    mask = torch.empty((n, k, -(-k // WORD)), dtype=torch.int64,
+                       device=valid.device)
+    _build.launch("alink_nms", valid.device, boxes.data_ptr(),
+                  valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), n, k,
+                  threshold)
+    return keep
+
+
+# A dispatcher op of its own, as ``alink_tpu_torch::attention_core``: the
+# profiler links a kernel to the op open at its launch, so a launch under
+# ``span("nms")`` alone would count under no event of the span.
+_OPS = torch.library.Library("alink_tpu_torch", "FRAGMENT")
+_OPS.define("nms(Tensor boxes, Tensor valid, float threshold) -> Tensor")
+_OPS.impl("nms", _launch, "CUDA")
+
+
+@torch.no_grad()
+def nms_kernel(boxes: torch.Tensor, valid: torch.Tensor,
+               threshold: float) -> torch.Tensor:
+    """``nms(boxes, scores, valid, threshold)``'s keep-mask (union mode) by
+    ``csrc/nms.cu`` for candidates in ``nms``'s visit order (descending
+    score, ties to the lower index): (N, K, 4) boxes and (N, K) valid on a
+    CUDA device -> (N, K) bool.  Span ``nms``; counters ``nms.calls`` and
+    ``nms.sweeps`` (one device sweep a call) and ``launches.nms``."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
+            valid.shape != boxes.shape[:2]:
+        raise ValueError(f"nms_kernel takes (N, K, 4) boxes and (N, K) "
+                         f"valid, got {tuple(boxes.shape)}, "
+                         f"{tuple(valid.shape)}")
+    if not boxes.is_cuda:
+        raise ValueError(f"nms_kernel needs CUDA tensors, got {boxes.device}")
+    with span("nms"):
+        keep = torch.ops.alink_tpu_torch.nms(
+            boxes.float().contiguous(), valid.bool().contiguous(),
+            float(threshold))
+        count("nms.calls")
+        count("nms.sweeps")
+        return keep

@@ -280,6 +280,9 @@ _SMS = 132                     # streaming multiprocessors of an H100 SXM
 # What a tile costs beyond its rows: streaming the block's weights once,
 # charged as this many rows of every stage.
 _TILE_ROWS = 64
+# A tile whose y1 and y2 live in global scratch, against one in shared
+# memory: its A fragments come back through plain loads from L2.
+_GLOBAL_COST = 1.5
 
 
 def _ceil(a: int, b: int) -> int:
@@ -332,7 +335,13 @@ def choose_tile(h: int, w: int, cin: int, cm: int, cout: int,
     rows weighed by its operations a row and each tile charged
     ``_TILE_ROWS`` more rows for streaming the weights, among those whose
     stages fit ``_MAX_MT1`` and ``_MAX_MT2`` 64-row tiles; balanced (th and
-    tw split h and w evenly), the earliest found on a tie."""
+    tw split h and w evenly), the earliest found on a tie.  A tile whose
+    y1 and y2 do not fit shared memory beside a 2-entry ring (they go to
+    global scratch) is charged ``_GLOBAL_COST`` times its rows: at
+    RetinaFace's 20^2, Cm 512, a 5 x 10 tile in shared memory (1.38 times
+    the rows) runs faster than 5 x 20 in global scratch; a Cm past 512
+    (a shared-memory tile 1.9 to 11 times the rows) keeps the global
+    scratch; at VGGFace-ResNet50's shapes the cheapest tile fits."""
     c1 = cin * cm
     c23 = 9 * cm * cm + cm * cout + (cin * cout if proj else 0)
     best = None
@@ -350,6 +359,8 @@ def choose_tile(h: int, w: int, cin: int, cm: int, cout: int,
             tiles = _ceil(h, th) * _ceil(w, tw)
             cost = tiles * (c1 * (64 * t.mt1 + _TILE_ROWS)
                             + c23 * (64 * t.mt2 + _TILE_ROWS))
+            if _smem(cm, t, 2)[1] > _MAX_SMEM:
+                cost *= _GLOBAL_COST
             if best is None or cost < best[0]:
                 best = (cost, t)
     return best[1]
@@ -536,21 +547,43 @@ def bottleneck_s1_kernel(x: torch.Tensor, wts: BottleneckWeights,
     x = x.to(torch.bfloat16).contiguous()
     if c < cin_p:
         x = F.pad(x, (0, cin_p - c))
-    out = torch.empty((n, h, w, cout_p), dtype=torch.bfloat16, device=dev)
-    act = (torch.empty((plan.blocks, plan.act_rows, cm_p),
-                       dtype=torch.bfloat16, device=dev)
-           if plan.global_act else None)
     pk, v = wts.packed, wts.vecs
-    ptrs = [None if t is None else t.data_ptr() for t in
-            (pk.w1, v.s1, v.b1, pk.w3, v.s2, v.b2, pk.w2, v.s3, v.b3, pk.wp,
-             v.sp, v.bp)]
-    _build.launch("alink_bottleneck", dev, x.data_ptr(), n, h, w, cin_p, cm_p,
-                  cout_p, *ptrs, out.data_ptr(),
-                  None if act is None else act.data_ptr(), plan.slots,
-                  plan.split, plan.blocks, plan.tile.th, plan.tile.tw)
+    out = torch.ops.alink_tpu_torch.bottleneck(
+        x, [pk.w1, v.s1, v.b1, pk.w3, v.s2, v.b2, pk.w2, v.s3, v.b3, pk.wp,
+            v.sp, v.bp],
+        [n, h, w, cin_p, cm_p, cout_p, plan.slots, plan.split, plan.blocks,
+         plan.tile.th, plan.tile.tw, plan.act_rows if plan.global_act else 0])
     if keep_padded or cout_p == cout:
         return out
     return out[..., :cout].contiguous()
+
+
+def _launch(x: torch.Tensor, weights: list[torch.Tensor | None],
+            plan: list[int]) -> torch.Tensor:
+    """The CUDA implementation of the ``alink_tpu_torch::bottleneck`` op:
+    the output (and, where ``act_rows`` > 0, the global y1/y2 scratch of
+    ``act_rows`` x Cm a block) allocated here, ``alink_bottleneck``
+    launched on the current stream with ``launch_plan``'s choices."""
+    n, h, w, cin_p, cm_p, cout_p, slots, split, blocks, th, tw, act_rows = \
+        plan
+    out = torch.empty((n, h, w, cout_p), dtype=torch.bfloat16,
+                      device=x.device)
+    act = (torch.empty((blocks, act_rows, cm_p), dtype=torch.bfloat16,
+                       device=x.device) if act_rows else None)
+    _build.launch("alink_bottleneck", x.device, x.data_ptr(), n, h, w, cin_p,
+                  cm_p, cout_p,
+                  *(None if t is None else t.data_ptr() for t in weights),
+                  out.data_ptr(), None if act is None else act.data_ptr(),
+                  slots, split, blocks, th, tw)
+    return out
+
+
+# A dispatcher op of its own, as ``alink_tpu_torch::attention_core``: the
+# profiler links a kernel to the op open at its launch, so K3's launches
+# count under the program's spans (RetinaFace's ``retina.backbone``).
+_OPS = torch.library.Library("alink_tpu_torch", "FRAGMENT")
+_OPS.define("bottleneck(Tensor x, Tensor?[] weights, int[] plan) -> Tensor")
+_OPS.impl("bottleneck", _launch, "CUDA")
 
 
 def bottleneck_chain_reference(x: torch.Tensor,

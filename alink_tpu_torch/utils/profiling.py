@@ -13,7 +13,10 @@ while a profiler records, and otherwise costs one check of the profiler's
 flag.  ``count(name, n)`` adds a host integer to a process-wide registry
 that ``counters()`` reads, with the kernels' launch counts beside it
 (``_build.launch`` makes them); ``counting()`` gives the counts made
-inside a ``with`` block.  Nothing here reads the device.
+inside a ``with`` block.  ``count_on_device(name, t)`` adds a count the
+device holds (a data-dependent one) to a total kept on that device, with
+no sync: ``counters()`` reads those totals, and only it waits for the
+device.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ SPAN_PREFIX = "alink/"
 _recording = torch.autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _COUNTS: dict[str, int] = defaultdict(int)
+_ON_DEVICE: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
 def span(name: str):
@@ -53,11 +57,24 @@ def count(name: str, n: int = 1) -> None:
     _COUNTS[name] += n
 
 
+def count_on_device(name: str, n: torch.Tensor) -> None:
+    """Add the integer tensor ``n`` (one element) to counter ``name``'s
+    total on ``n``'s device, without reading it."""
+    key = (name, n.device)
+    if key not in _ON_DEVICE:
+        _ON_DEVICE[key] = torch.zeros((), dtype=torch.int64, device=n.device)
+    _ON_DEVICE[key] += n.reshape(())
+
+
 def counters() -> dict[str, int]:
-    """A snapshot of every counter, with the kernel library's launch
-    counts (``launches.k1`` to ``launches.k4``, ``launches.bn_act``,
-    ``launches.bn_act_backward``, ``launches.attn``; ``_build``)."""
+    """A snapshot of every counter (those kept on a device read now, which
+    waits for it), with the kernel library's launch counts
+    (``launches.k1`` to ``launches.k4``, ``launches.bn_act``,
+    ``launches.bn_act_backward``, ``launches.attn``, ``launches.nms``;
+    ``_build``)."""
     out = dict(_COUNTS)
+    for (name, _), total in _ON_DEVICE.items():
+        out[name] = out.get(name, 0) + int(total)
     out.update(_build.launch_counts())
     return out
 

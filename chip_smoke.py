@@ -229,6 +229,17 @@ q. the ViT attention core (``ops.attention``, ``csrc/attention.cu``):
    and the FGSM pixel gradient on 4 chips against the plain core's, beside
    the library core's distance from it.  The kernels line counts the
    launches of (q)'s ViT-L forwards, each held to 24.
+r. RetinaFace-R50's detector: the NMS kernel (``csrc/nms.cu``) against
+   ``ops.nms.nms`` at the cascade's budgets (grid boxes, tied scores) and
+   one photo at a time at 5,000 candidates, and against the reference's
+   sequential greedy loop at 256 x 5,000 (sorted and unsorted input), the
+   keep-masks bit-equal; its device time beside
+   ``roofline_retina.nms_bound_s``; K3 at the detector's five stride-1
+   shapes (160^2 to 20^2) on dyadic data (exact) at batch 32 and 256,
+   timed at 256 beside each shape's bound; ``RetinaFaceR50`` at 640^2,
+   batch 256 (forward and detector call, TFLOP/s) and
+   ``FaceModel(r100, detector=...)`` faces/s, with its launches a call
+   (K3 13, NMS 1).
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -4077,6 +4088,229 @@ def phase_attention(dev, smi: str) -> tuple[int, dict]:
                       "bound_by": "bytes", "library_ms": lib}
 
 
+# Phase (r): RetinaFace-R50's detector, its NMS kernel and K3 at its
+# shapes.  NMS data: boxes on an integer grid (inclusive sides 1 to 40,
+# so overlaps repeat and some land exactly on the threshold) with scores
+# on a grid of 1/8 (ties by the hundred), at the cascade's budgets; and
+# decode-like boxes over a 640^2 photo (centres uniform, sides 16 to 512
+# px times exp(N(0, 0.2))) with scores on a grid of 2^-12, at 5,000.
+R_PHOTO = 640
+R_BATCH = 256
+R_TOPK = 5000
+R_CASCADE = ((256, 32), (256, 8), (256, 4), (64, 1))
+R_K3_BATCHES = (32, 256)
+R_STEM_VAR = 5688.83
+
+
+def _grid_boxes(n: int, k: int, g) -> tuple:
+    xy = torch.randint(0, 24, (n, k, 2), generator=g).float()
+    wh = torch.randint(0, 40, (n, k, 2), generator=g).float()
+    s = torch.randint(0, 8, (n, k), generator=g).float() / 8
+    return torch.cat([xy, xy + wh], -1), s, torch.rand(n, k, generator=g) > .1
+
+
+def _photo_boxes(n: int, k: int, g) -> tuple:
+    c = torch.rand(n, k, 2, generator=g) * R_PHOTO
+    side = torch.tensor([16.0, 32, 64, 128, 256, 512])[
+        torch.randint(0, 6, (n, k), generator=g)][..., None] * torch.exp(
+            0.2 * torch.randn(n, k, 2, generator=g))
+    s = torch.randint(0, 4096, (n, k), generator=g).float() / 4096
+    return (torch.cat([c - side / 2, c + side / 2], -1), s,
+            torch.rand(n, k, generator=g) > 0.02)
+
+
+def _in_visit_order(b, s, v) -> tuple:
+    """Candidates sorted into ``ops.nms.nms``'s visit order (descending
+    score, ties to the lower index), as ``nms_kernel`` takes them."""
+    order = torch.sort(s, dim=1, descending=True, stable=True)[1]
+    return (torch.gather(b, 1, order[..., None].expand(b.shape)),
+            torch.gather(s, 1, order), torch.gather(v, 1, order))
+
+
+def phase_retina(dev, smi: str) -> tuple[dict, dict]:
+    """(r) the NMS kernel (``ops.nms.nms_kernel``, ``csrc/nms.cu``) on
+    candidates in visit order against ``ops.nms.nms`` at the cascade's
+    budgets and one photo at a time at 5,000 candidates, and against the
+    reference's sequential greedy loop
+    (``bench_torch/reference/retinaface.greedy_nms``) at 256 x 5,000,
+    the keep-masks bit-equal; its device time beside
+    ``roofline_retina.nms_bound_s``; K3 at RetinaFace-R50's five stride-1
+    shapes (160^2 to 20^2) against its plain version on dyadic data
+    (exact) at batch 32 and 256, its device time at 256 beside each
+    shape's ``roofline.bound_s``; then ``RetinaFaceR50`` at 640^2 and
+    batch 256 with its landmark heads at the mean-face prior (the forward,
+    the detector's call, TFLOP/s against ``retina_flops``),
+    ``FaceModel(r100, detector=...)`` faces/s with the launches of one
+    pipeline call, and K2 at this path's shapes (the 256 photos of 640^2
+    warped by the similarities of each photo's best kept landmarks)
+    against the plain warp.  Returns the launches of the phase's main-path
+    runs by kernel, and the NMS kernel's numbers."""
+    from alink_tpu_torch.detect import (CascadeConfig, FaceModel,
+                                        RetinaFaceDetector)
+    from alink_tpu_torch.detect.cascade import _MEAN_FACE, alignment_transforms
+    from alink_tpu_torch.models import ArcFaceResNet100, RetinaFaceR50
+    from alink_tpu_torch.ops import image
+    from alink_tpu_torch.ops import nms as N
+    from alink_tpu_torch.ops import resblock
+    from bench_torch import roofline_retina as RR
+    from bench_torch.reference.retinaface import greedy_nms
+
+    t_phase = time.perf_counter()
+    for line in _ptxas("nms_"):
+        print(f"nms ptxas: {line}", flush=True)
+    g = torch.Generator().manual_seed(SEED + 20)
+    for n, k in R_CASCADE:
+        b, s, v = (t.to(dev) for t in _in_visit_order(*_grid_boxes(n, k,
+                                                                     g)))
+        got, want = N.nms_kernel(b, v, 0.4), N.nms(b, s, v, 0.4)
+        print(f"nms kernel {n} x {k} (grid boxes, tied scores): "
+              f"{int((got != want).sum())} flags differ from ops.nms.nms, "
+              f"{int(want.sum())} kept", flush=True)
+        check(torch.equal(got, want), f"nms kernel {n} x {k}: differs")
+    bs, ss, vs = (t.to(dev) for t in _in_visit_order(
+        *_photo_boxes(R_BATCH, R_TOPK, g)))
+    for i in range(4):
+        got = N.nms_kernel(bs[i:i + 1], vs[i:i + 1], 0.4)
+        want = N.nms(bs[i:i + 1], ss[i:i + 1], vs[i:i + 1], 0.4)
+        print(f"nms kernel photo {i}, 1 x {R_TOPK}: "
+              f"{int((got != want).sum())} flags differ from ops.nms.nms, "
+              f"{int(want.sum())} kept", flush=True)
+        check(torch.equal(got, want), f"nms kernel photo {i}: differs")
+    got = N.nms_kernel(bs, vs, 0.4)
+    t0 = time.perf_counter()
+    want = greedy_nms(bs, vs, 0.4)
+    t_loop = time.perf_counter() - t0
+    print(f"nms kernel {R_BATCH} x {R_TOPK}: {int((got != want).sum())} "
+          f"flags differ from the sequential greedy loop ({t_loop:.2f} s), "
+          f"{int(want.sum())} kept ({int(want.sum(1).min())} to "
+          f"{int(want.sum(1).max())} a photo)", flush=True)
+    check(torch.equal(got, want), "nms kernel 256 x 5,000: differs from "
+          "the greedy loop")
+    ms, call = kernel_ms(lambda: N.nms_kernel(bs, vs, 0.4), "launches.nms")
+    bound = RR.nms_bound_s(R_BATCH, R_TOPK) * 1e3
+    nms_numbers = kernel_numbers(0.0, ms, call, None,
+                                 RR.nms_ops(R_BATCH, R_TOPK), H100_F32_TFLOPS,
+                                 RR.nms_bytes(R_BATCH, R_TOPK))
+    print(f"nms kernel {R_BATCH} x {R_TOPK}: {ms:.4f} ms on the device "
+          f"({call:.4f} per call from Python), bound {bound:.4f} ms "
+          f"({nms_numbers['bound_by']}; {100 * bound / ms:.1f} % of it)",
+          flush=True)
+    del bs, ss, vs, got, want
+    torch.cuda.empty_cache()
+
+    gd = torch.Generator(device=dev).manual_seed(SEED + 21)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = sorted(set(RR.retina_stride1_blocks(R_PHOTO)), reverse=True)
+    for hw, cin, cm, cout, proj in shapes:
+        name = f"{hw}x{hw} {cin}->{cm}->{cout}{' proj' if proj else ''}"
+        wts = k3_weights(cin, cm, cout, proj, g, dev, True)
+        for batch in R_K3_BATCHES:
+            plan = resblock.launch_plan(batch, hw, hw, cin, cm, cout, proj,
+                                        sms)
+            x = torch.randint(-2, 3, (batch, hw, hw, cin), generator=gd,
+                              device=dev).to(torch.bfloat16)
+            got = resblock.bottleneck_s1_kernel(x, wts)
+            want = torch.cat([resblock.bottleneck_s1_reference(
+                x[i:i + 32], wts) for i in range(0, batch, 32)])
+            torch.cuda.synchronize()
+            err = maxdiff(got, want)
+            nonzero = float((want != 0).float().mean())
+            line = (f"K3 retina {name} batch {batch} ({plan.tile.th}x"
+                    f"{plan.tile.tw} tiles, {plan.blocks} blocks, ring "
+                    f"{plan.slots}, y1/y2 global {plan.global_act}) dyadic: "
+                    f"max|diff| {err:.3e} (limit {K3_EXACT_LIMIT}), "
+                    f"{100 * nonzero:.0f} % non-zero")
+            if batch == R_K3_BATCHES[-1]:
+                ms = graph_ms(lambda: resblock.bottleneck_s1_kernel(x, wts),
+                              calls=5, counter="launches.k3")
+                bound, by = bound_s(k3_flops(batch, hw, cin, cm, cout, proj),
+                                    H100_BF16_TFLOPS,
+                                    RR.k3_bytes(batch, hw, cin, cm, cout,
+                                                proj))
+                line += (f"; kernel {ms:.4f} ms, bound {bound * 1e3:.4f} ms "
+                         f"({by}; {100 * bound * 1e3 / ms:.1f} % of it)")
+            print(line, flush=True)
+            check(err <= K3_EXACT_LIMIT and nonzero > 0.2,
+                  f"K3 retina {name} batch {batch}: max|diff| {err}")
+            del x, got, want
+        del wts
+    torch.cuda.empty_cache()
+
+    gw = torch.Generator(device=dev).manual_seed(SEED + 22)
+    model = RetinaFaceR50(dtype=torch.bfloat16, device=dev)
+    prior = torch.tensor([10.0 * (p - 0.5) for xy in zip(_MEAN_FACE[:5],
+                                                          _MEAN_FACE[5:])
+                          for p in xy] * 2, device=dev)
+    with torch.no_grad():
+        # The stem's BN at the second moment of the mean-subtracted
+        # levels, so that the random trunk's activations stay near 1; the
+        # landmark heads at the mean-face prior, as the benchmark's
+        # configuration seeds them (random ones give degenerate faces).
+        model.body.bn[0].var.fill_(R_STEM_VAR)
+        for head in model.landmark_head:
+            head.weight.mul_(0.01)
+            head.bias.copy_(prior)
+    model.refold()
+    emb = ArcFaceResNet100(dtype=torch.bfloat16, device=dev).eval()
+    detector = RetinaFaceDetector(model)
+    photos = torch.randint(0, 256, (R_BATCH, R_PHOTO, R_PHOTO, 3),
+                           generator=gw, device=dev).float()
+    fwd = cuda_ms(lambda: model(photos), iters=3, warmup=1)
+    det_ms = cuda_ms(lambda: detector(photos), iters=3, warmup=1)
+    tf = RR.retina_flops(R_PHOTO) * R_BATCH / (fwd * 1e-3) / 1e12
+    print(f"retina forward {R_BATCH} x {R_PHOTO}^2: {fwd:.2f} ms "
+          f"({tf:.1f} TFLOP/s, {100 * tf / H100_BF16_TFLOPS:.1f} % of "
+          f"{H100_BF16_TFLOPS:.0f}); detector call {det_ms:.2f} ms "
+          f"(post-process {det_ms - fwd:.2f})", flush=True)
+    fm = FaceModel(emb, cfg=CascadeConfig(), detector=detector)
+    with counting() as made:
+        emb_out, found = fm.pipeline_valid(photos)
+        torch.cuda.synchronize()
+    pipe = cuda_ms(lambda: fm.pipeline(photos), iters=3, warmup=1)
+    print(f"retina pipeline (RetinaFace-R50 -> K2 -> r100) {R_BATCH} "
+          f"photos: {pipe:.2f} ms, {R_BATCH / pipe * 1e3:.1f} faces/s; "
+          f"found {int(found.sum())}; counts "
+          + ", ".join(f"{k} {v}" for k, v in made.items()
+                      if k.startswith(("launches.", "retina.", "nms."))
+                      and v), flush=True)
+    check(bool(torch.isfinite(emb_out).all()), "retina pipeline: non-finite")
+    check(made["launches.k3"] == 13 and made["launches.nms"] == 1,
+          "retina pipeline: K3 13 and NMS 1 launch a call expected")
+
+    # K2 at this path's shapes: 256 photos of 640^2 float32 (1.26 GB)
+    # warped by the similarities of each photo's best kept landmarks, as
+    # FaceModel aligns them, against the plain warp, on the found photos
+    # (coinciding landmarks warp by a singular map, to NaN on both sides).
+    det = detector(photos)
+    best = torch.argmax(torch.where(det.valid, det.scores, -1.0), dim=1)
+    lmk = det.landmarks[torch.arange(R_BATCH, device=dev), best]
+    found = det.valid.any(1) & ((lmk - lmk[:, :1]).abs().amax(dim=(1, 2))
+                                > 0)
+    Ms = alignment_transforms(lmk)
+    with counting() as warped:
+        chips = image.affine_warp_batch(photos, Ms, (112, 112))
+        torch.cuda.synchronize()
+    want = image.affine_warp_batch_reference(photos, Ms, (112, 112))
+    err = maxdiff(chips[found], want[found])
+    inside = float((want[found] != 0).float().mean())
+    print(f"retina K2 {R_BATCH} x {R_PHOTO}^2 f32 -> 112^2, the detector's "
+          f"landmarks: {int(found.sum())} found, vs plain max|diff| "
+          f"{err:.3e} (limit 1e-3), {100 * inside:.1f} % of the chips' "
+          f"values non-zero; K2 launches {warped['launches.k2']}",
+          flush=True)
+    check(int(found.sum()) > R_BATCH // 2, "retina K2: under half the "
+          "photos found")
+    check(err <= 1e-3, f"retina K2 chips: max|diff| {err} > 1e-3")
+    check(inside > 0.25, "retina K2: the chips lie mostly outside the "
+          "photos")
+    print(f"retina: phase (r) {time.perf_counter() - t_phase:.1f} s on "
+          f"{smi}", flush=True)
+    return {"nms": made["launches.nms"],
+            "affine_warp": made["launches.k2"] + warped["launches.k2"],
+            "bottleneck": made["launches.k3"],
+            "bn_act": made["launches.bn_act"]}, nms_numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4159,30 +4393,37 @@ def main() -> int:
     counts["attention"], numbers["attention"] = phase_attention(dev, smi)
     torch.cuda.empty_cache()
     stamp("q")
+    retina_counts, numbers["nms"] = phase_retina(dev, smi)
+    torch.cuda.empty_cache()
+    stamp("r")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
     # K2, training, the A2 channel, evaluation, the augmented loop,
     # run_alink_mtp, existing_al and ResNet50Classifier's fit for K3, its
-    # own op path for K4; (n)'s sharded paths for K1, K2 and K3; and (o)'s
-    # staging featurize for K3.
+    # own op path for K4; (n)'s sharded paths for K1, K2 and K3; (o)'s
+    # staging featurize for K3; and (r)'s RetinaFace pipeline for K2, K3,
+    # bn_act and the NMS kernel, with its K2 check.
     counts["bottleneck"] = (alink_counts["bottleneck"] + a2_launches
                             + eval_counts["bottleneck"]
                             + resume_counts["bottleneck"]
                             + mtp_counts["bottleneck"]
                             + classify_counts["bottleneck"]
                             + par_counts["bottleneck"]
-                            + ingest_counts["bottleneck"])
+                            + ingest_counts["bottleneck"]
+                            + retina_counts["bottleneck"])
     counts["pair_score"] += (eval_counts["pair_score"]
                              + rest_counts["pair_score"]
                              + mtp_counts["pair_score"]
                              + par_counts["pair_score"])
-    # bn_act: the r100 forwards of the serving slice (c) and of (k)'s
-    # profiles, 149 each.
-    counts["bn_act"] += rest_counts["bn_act"]
+    # bn_act: the r100 forwards of the serving slice (c), of (k)'s
+    # profiles and of (r)'s pipeline call, 149 each.
+    counts["bn_act"] += rest_counts["bn_act"] + retina_counts["bn_act"]
     counts["affine_warp"] += (resume_counts["affine_warp"]
                               + rest_counts["affine_warp"]
-                              + par_counts["affine_warp"])
+                              + par_counts["affine_warp"]
+                              + retina_counts["affine_warp"])
+    counts["nms"] = retina_counts["nms"]
 
     sources = {"pair_score": ("alink_tpu_torch/csrc/pair_score.cu",
                               "alink_tpu/ops/pairwise.py:134"),
@@ -4195,7 +4436,9 @@ def main() -> int:
                "bn_act": ("alink_tpu_torch/csrc/bn_act.cu",
                           "none: XLA fuses BN and PReLU"),
                "attention": ("alink_tpu_torch/csrc/attention.cu",
-                             "none: the JAX package has no ViT")}
+                             "none: the JAX package has no ViT"),
+               "nms": ("alink_tpu_torch/csrc/nms.cu",
+                       "none: alink_tpu/ops/nms.py is array arithmetic")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],

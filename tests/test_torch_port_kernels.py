@@ -11,7 +11,9 @@ on the CPU at the shapes the main paths give them.
 - each launch plan is one the kernel's C entry point accepts (the wrapper
   passes the plan's ring, boxes, cluster size and grid; the entry point
   checks them and refuses a launch otherwise), on an H100 SXM (132 SMs)
-  and an H100 PCIe (114).
+  and an H100 PCIe (114);
+- K3's plans at RetinaFace-R50's shapes (160^2 to 20^2, batch 1 to 256)
+  are valid, and those at VGGFace-ResNet50's are the ones they were.
 """
 
 import numpy as np
@@ -579,6 +581,84 @@ def _flat_row_3x3(y: torch.Tensor, w3: torch.Tensor, th: int,
                     if q // t.hs < th and q % t.hs < tw and oy < h and ox < w:
                         out[img, oy, ox] = acc[q]
     return out
+
+
+# RetinaFace-R50's stride-1 block shapes at 640x640 (160^2 to 20^2) and the
+# tiles launch_plan picks there: 5 x 23 at 160^2 (7 x 32 tiles, one column
+# past the image), 4 x 27 at 80^2, 8 x 14 at 40^2, and 5 x 10 at 20^2, where
+# the cheapest tile (5 x 20) would keep y1 and y2 in global scratch.
+RETINA_K3_SHAPES = [(160, 64, 64, 256, True), (160, 256, 64, 256, False),
+                    (80, 512, 128, 512, False), (40, 1024, 256, 1024, False),
+                    (20, 2048, 512, 2048, False)]
+RETINA_K3_TILES = {160: (5, 23), 80: (4, 27), 40: (8, 14), 20: (5, 10)}
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("batch", [1, 32, 256])
+@pytest.mark.parametrize("hw,cin,cm,cout,proj", RETINA_K3_SHAPES)
+def test_bottleneck_launch_plan_at_retinaface_shapes(hw, cin, cm, cout, proj,
+                                                     batch, sms):
+    """At the detector's shapes every plan is one the entry point accepts,
+    keeps y1 and y2 in shared memory, walks every tile once and covers
+    every output pixel once."""
+    plan = resblock.launch_plan(batch, hw, hw, cin, cm, cout, proj, sms)
+    t = plan.tile
+    assert (t.th, t.tw) == RETINA_K3_TILES[hw]
+    assert _k3_entry_accepts(plan, batch, hw, hw, cin, cm, cout, proj, sms)
+    assert not plan.global_act
+    persistent = plan.split == 1 and plan.tiles > sms
+    assert plan.blocks == (sms if persistent else plan.tiles * plan.split)
+    step = plan.blocks // plan.split
+    walked = torch.cat([torch.arange(b, plan.tiles, step)
+                        for b in range(step)])
+    assert torch.equal(torch.sort(walked).values, torch.arange(plan.tiles))
+    hits = torch.zeros(plan.tiles_y * t.th, plan.tiles_x * t.tw,
+                       dtype=torch.int64)
+    for ty in range(plan.tiles_y):
+        for tx in range(plan.tiles_x):
+            hits[t.th * ty:t.th * (ty + 1), t.tw * tx:t.tw * (tx + 1)] += 1
+    assert bool((hits[:hw, :hw] == 1).all())
+
+
+# sha256 of each VGGFace-shape plan (every field, the ring schedule
+# included) as launch_plan gave it before RetinaFace's shapes were added.
+VGG_K3_PLANS = {
+    (55, 64, 32): "ffc9c2ede9144c32", (55, 64, 256): "d40f755b7f3f5da5",
+    (55, 64, 1024): "61d07d1ed96ffedc", (55, 256, 32): "731f268b28c4e749",
+    (55, 256, 256): "58cd530c8bdbcc4f", (55, 256, 1024): "2393bd4ad42810ac",
+    (28, 512, 32): "bbdedb17d921146c", (28, 512, 256): "e47575b62a323928",
+    (28, 512, 1024): "16974bfcb3cd6963", (14, 1024, 32): "05d73bab08b2ff19",
+    (14, 1024, 256): "e2e8922f47b21c75", (14, 1024, 1024): "a132602da0dd6a10",
+    (7, 2048, 32): "5c83b33b0bc08bd4", (7, 2048, 256): "02789c0a65214734",
+    (7, 2048, 1024): "af934101498404a6"}
+
+
+@pytest.mark.parametrize("batch", [32, 256, 1024])
+@pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)
+def test_bottleneck_launch_plans_at_vgg_shapes_unchanged(hw, cin, cm, cout,
+                                                         proj, batch):
+    import hashlib
+
+    plan = resblock.launch_plan(batch, hw, hw, cin, cm, cout, proj, 132)
+    digest = hashlib.sha256(repr(tuple(plan)).encode()).hexdigest()[:16]
+    assert digest == VGG_K3_PLANS[(hw, cin, batch)]
+
+
+@pytest.mark.parametrize("hw,cin,cm,cout,proj", RETINA_K3_SHAPES[1:])
+def test_bottleneck_flat_row_3x3_at_retinaface_tiles(hw, cin, cm, cout,
+                                                     proj):
+    """The flat-row 3x3 at the detector's tiles equals a SAME convolution
+    (one image, 4 channels, float64)."""
+    t = resblock.launch_plan(256, hw, hw, cin, cm, cout, proj).tile
+    g = torch.Generator().manual_seed(hw)
+    y = torch.randn((1, hw, hw, 4), generator=g, dtype=torch.float64)
+    w3 = torch.randn((3, 3, 4, 3), generator=g, dtype=torch.float64)
+    got = _flat_row_3x3(y, w3, t.th, t.tw)
+    want = torch.nn.functional.conv2d(
+        y.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("hw,cin,cm,cout,proj", K3_SHAPES)

@@ -1,23 +1,32 @@
 // Frozen batch norm, PReLU and residual add of an ArcFace improved-residual
-// unit, fused into one pass over the activation, for Hopper (sm_90a).
+// unit, and frozen batch norm, residual add and ReLU of a keras ResNet-50's
+// stem and strided bottlenecks, fused into one pass over the activation,
+// for Hopper (sm_90a).
 //
-// Replaces no TPU kernel: the JAX package (alink_tpu/models/arcface.py)
-// leaves BN and PReLU to XLA, which fuses them into the convolutions'
-// neighbours.  The port's plain chain (ops/bn_act.py:bn_act_reference,
-// the _FrozenBN, _PReLU and + of models/) rebuilds each BN's scale and
-// shift in ~8 launches on C-element vectors and then makes two to three
-// full passes over the bf16 activation per operation: ~11 passes and ~39
-// launches a unit.  This kernel makes one pass per mode:
+// Replaces no TPU kernel: the JAX package (alink_tpu/models/arcface.py,
+// resnet.py) leaves BN, PReLU and ReLU to XLA, which fuses them into the
+// convolutions' neighbours.  The port's plain chain
+// (ops/bn_act.py:bn_act_reference, the _FrozenBN, _PReLU, + and torch.relu
+// of models/) rebuilds each BN's scale and shift in ~8 launches on
+// C-element vectors and then makes two to three full passes over the bf16
+// activation per operation: ~11 passes and ~39 launches an ArcFace unit.
+// This kernel makes one pass per mode:
 //   mode 0, bn:        y = round(round(x * s) + b)
 //   mode 1, bn_prelu:  bn, then y >= 0 ? y : round(round(alpha) * y)
 //   mode 2, bn_add:    round(bn(x) + r)
 //   mode 3, bn_add_bn: round(bn(x) + bn'(r)), bn' the shortcut's own BN
-// where round() rounds to the working type T (bf16 or f32).  Where a
-// gradient is wanted, alink_bn_act_backward gives the gradients of the
-// activations in one pass too, the plain path's own backward operations:
-// dx = round(g' * s), g' = g, or through the PReLU g where bn(x) >= 0 (bn
-// recomputed from x) else round(g * round(alpha)); the shortcut's gradient
-// is g, or round(g * s') through its BN.
+//   mode 4, bn_relu:   relu(bn(x))
+//   mode 5, bn_add_bn_relu: relu(round(bn(x) + bn'(r)))
+// where round() rounds to the working type T (bf16 or f32) and relu() is
+// torch.relu's clamp_min: NaN stays, else fmaxf(y, 0) (the same
+// instruction, so the same sign of a zero).  Where a gradient is wanted,
+// alink_bn_act_backward gives the gradients of the activations in one pass
+// too, the plain path's own backward operations: dx = round(g' * s), g' =
+// g, or through the PReLU g where bn(x) >= 0 (bn recomputed from x) else
+// round(g * round(alpha)), or through the ReLU 0 where the forward's
+// output is <= 0 (threshold_backward on the saved output, one read where
+// recomputing mode 5's would take two) else g; the shortcut's gradient is
+// g, or round(g' * s') through its BN.
 //
 // Bound: memory.  Each mode reads its one or two activations once and
 // writes one; the statistics are a few hundred bytes a block, read from L2.
@@ -132,6 +141,11 @@ __device__ __forceinline__ float apply_bn(float x, float s, float b) {
   return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x, s)), b));
 }
 
+// torch.relu on the card (clamp_min's kernel): NaN passes, else fmaxf.
+__device__ __forceinline__ float relu(float y) {
+  return isnan(y) ? y : fmaxf(y, 0.0f);
+}
+
 // Vectors of V channels a block spans: at most kTileChannels channels, so a
 // block folds at most that many statistics whatever C is.
 template <int V>
@@ -168,7 +182,7 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
   if (folds) {
     k = load_channel(p, c0 + i);
     if (MODE == 1) a = alpha[c0 + i];
-    if (MODE == 3) k2 = load_channel(q, c0 + i);
+    if (MODE == 3 || MODE == 5) k2 = load_channel(q, c0 + i);
   }
   P xv[kRowsInFlight], rv[kRowsInFlight];
 #pragma unroll
@@ -177,7 +191,9 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
     if (active && at < rows) {
       const long long off = at * c + col * V;
       xv[u] = *reinterpret_cast<const P*>(x + off);
-      if (MODE >= 2) rv[u] = *reinterpret_cast<const P*>(r + off);
+      if (MODE >= 2 && MODE != 4) {
+        rv[u] = *reinterpret_cast<const P*>(r + off);
+      }
     }
   }
 
@@ -189,7 +205,7 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
   if (folds) {
     fold<T>(k, p.eps, &s[i], &b[i]);
     if (MODE == 1) s2[i] = round_to<T>(a);
-    if (MODE == 3) fold<T>(k2, q.eps, &s2[i], &b2[i]);
+    if (MODE == 3 || MODE == 5) fold<T>(k2, q.eps, &s2[i], &b2[i]);
   }
   __syncthreads();
   if (!active) return;
@@ -199,8 +215,8 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
     const int j = lane * V + v;
     rs[v] = s[j];
     rb[v] = b[j];
-    rs2[v] = MODE == 1 || MODE == 3 ? s2[j] : 0.0f;
-    rb2[v] = MODE == 3 ? b2[j] : 0.0f;
+    rs2[v] = MODE == 1 || MODE == 3 || MODE == 5 ? s2[j] : 0.0f;
+    rb2[v] = MODE == 3 || MODE == 5 ? b2[j] : 0.0f;
   }
 
 #pragma unroll
@@ -215,9 +231,10 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
           y = round_to<T>(__fmul_rn(rs2[v], y));
         } else if (MODE == 2) {
           y = __fadd_rn(y, to_f32(rv[u].v[v]));
-        } else if (MODE == 3) {
+        } else if (MODE == 3 || MODE == 5) {
           y = __fadd_rn(y, apply_bn<T>(to_f32(rv[u].v[v]), rs2[v], rb2[v]));
         }
+        if (MODE >= 4) y = relu(round_to<T>(y));
         o.v[v] = from_f32<T>(y);
       }
       *reinterpret_cast<P*>(out + at * c + col * V) = o;
@@ -231,6 +248,8 @@ __global__ void bn_act_kernel(const T* __restrict__ x,
 //   mode 1:        y = bn(x) recomputed; dx = round(gy * s), gy = g where
 //                  y >= 0, else round(g * round(alpha))
 //   mode 3:        dx = round(g * s), dr = round(g * s')
+//   modes 4 and 5: g' = 0 where the saved output (passed as x) is <= 0,
+//                  else g; dx = round(g' * s) (mode 5: dr = round(g' * s'))
 // Same tiling and in-kernel fold as bn_act_kernel; g and x are read once,
 // dx (and dr) written once.
 template <typename T, int V, int MODE>
@@ -256,7 +275,7 @@ __global__ void bn_act_backward_kernel(const T* __restrict__ g,
   if (folds) {
     k = load_channel(p, c0 + i);
     if (MODE == 1) a = alpha[c0 + i];
-    if (MODE == 3) k2 = load_channel(q, c0 + i);
+    if (MODE == 3 || MODE == 5) k2 = load_channel(q, c0 + i);
   }
   P gv[kRowsInFlight], xv[kRowsInFlight];
 #pragma unroll
@@ -265,7 +284,7 @@ __global__ void bn_act_backward_kernel(const T* __restrict__ g,
     if (active && at < rows) {
       const long long off = at * c + col * V;
       gv[u] = *reinterpret_cast<const P*>(g + off);
-      if (MODE == 1) xv[u] = *reinterpret_cast<const P*>(x + off);
+      if (MODE == 1 || MODE >= 4) xv[u] = *reinterpret_cast<const P*>(x + off);
     }
   }
 
@@ -277,7 +296,7 @@ __global__ void bn_act_backward_kernel(const T* __restrict__ g,
   if (folds) {
     fold<T>(k, p.eps, &s[i], &b[i]);
     if (MODE == 1) s2[i] = round_to<T>(a);
-    if (MODE == 3) fold<T>(k2, q.eps, &s2[i], &b2[i]);
+    if (MODE == 3 || MODE == 5) fold<T>(k2, q.eps, &s2[i], &b2[i]);
   }
   __syncthreads();
   if (!active) return;
@@ -287,7 +306,7 @@ __global__ void bn_act_backward_kernel(const T* __restrict__ g,
     const int j = lane * V + v;
     rs[v] = s[j];
     rb[v] = MODE == 1 ? b[j] : 0.0f;
-    rs2[v] = MODE == 1 || MODE == 3 ? s2[j] : 0.0f;
+    rs2[v] = MODE == 1 || MODE == 3 || MODE == 5 ? s2[j] : 0.0f;
   }
 
 #pragma unroll
@@ -303,12 +322,14 @@ __global__ void bn_act_backward_kernel(const T* __restrict__ g,
           const float y = apply_bn<T>(to_f32(xv[u].v[v]), rs[v], rb[v]);
           if (!(y >= 0.0f)) gy = round_to<T>(__fmul_rn(gg, rs2[v]));
         }
+        if (MODE >= 4 && to_f32(xv[u].v[v]) <= 0.0f) gy = 0.0f;
         o.v[v] = from_f32<T>(__fmul_rn(gy, rs[v]));
         if (MODE == 3) o2.v[v] = from_f32<T>(__fmul_rn(gg, rs2[v]));
+        if (MODE == 5) o2.v[v] = from_f32<T>(__fmul_rn(gy, rs2[v]));
       }
       const long long off = at * c + col * V;
       *reinterpret_cast<P*>(dx + off) = o;
-      if (MODE == 3) *reinterpret_cast<P*>(dr + off) = o2;
+      if (MODE == 3 || MODE == 5) *reinterpret_cast<P*>(dr + off) = o2;
     }
   }
 }
@@ -336,7 +357,7 @@ template <typename T, int V, int MODE>
 cudaError_t launch(const void* x, const void* r, void* out, int rows, int c,
                    BnStats p, BnStats q, const float* alpha,
                    cudaStream_t stream) {
-  const Shape sh = shape_of<V>(rows, c, MODE == 0 ? 2 : 4);
+  const Shape sh = shape_of<V>(rows, c, MODE == 0 || MODE == 4 ? 2 : 4);
   bn_act_kernel<T, V, MODE><<<sh.grid, sh.threads, sh.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r), static_cast<T*>(out),
       rows, c, p, q, alpha);
@@ -366,6 +387,10 @@ cudaError_t dispatch_mode(int mode, const void* x, const void* r, void* out,
       return launch<T, V, 1>(x, r, out, rows, c, p, q, alpha, stream);
     case 2:
       return launch<T, V, 2>(x, r, out, rows, c, p, q, alpha, stream);
+    case 4:
+      return launch<T, V, 4>(x, r, out, rows, c, p, q, alpha, stream);
+    case 5:
+      return launch<T, V, 5>(x, r, out, rows, c, p, q, alpha, stream);
     default:
       return launch<T, V, 3>(x, r, out, rows, c, p, q, alpha, stream);
   }
@@ -383,6 +408,12 @@ cudaError_t dispatch_backward_mode(int mode, const void* g, const void* x,
                                       stream);
     case 1:
       return launch_backward<T, V, 1>(g, x, dx, dr, rows, c, p, q, alpha,
+                                      stream);
+    case 4:
+      return launch_backward<T, V, 4>(g, x, dx, dr, rows, c, p, q, alpha,
+                                      stream);
+    case 5:
+      return launch_backward<T, V, 5>(g, x, dx, dr, rows, c, p, q, alpha,
                                       stream);
     default:
       return launch_backward<T, V, 3>(g, x, dx, dr, rows, c, p, q, alpha,
@@ -436,9 +467,10 @@ BnStats stats_of(const void* gamma, const void* beta, const void* mean,
 
 }  // namespace
 
-// mode: 0 bn, 1 bn_prelu, 2 bn_add, 3 bn_add_bn; dtype: 0 f32, 1 bf16.  x, r
-// (modes 2-3) and out are (rows, c) row-major in the working type; the
-// statistics f32 (c,); alpha (mode 1) f32 (c,).
+// mode: 0 bn, 1 bn_prelu, 2 bn_add, 3 bn_add_bn, 4 bn_relu, 5
+// bn_add_bn_relu; dtype: 0 f32, 1 bf16.  x, r (modes 2, 3 and 5) and out
+// are (rows, c) row-major in the working type; the statistics f32 (c,);
+// alpha (mode 1) f32 (c,); the shortcut's statistics (modes 3 and 5).
 extern "C" int alink_bn_act(int mode, int dtype, const void* x, const void* r,
                             void* out, int rows, int c, const void* gamma,
                             const void* beta, const void* mean,
@@ -447,9 +479,10 @@ extern "C" int alink_bn_act(int mode, int dtype, const void* x, const void* r,
                             const void* var2, float eps2, const void* alpha,
                             void* stream) {
   const bool bad_stats = !gamma || !beta || !mean || !var;
-  const bool bad_mode = mode < 0 || mode > 3 || (mode == 1 && !alpha) ||
-                        (mode >= 2 && !r) ||
-                        (mode == 3 && (!gamma2 || !beta2 || !mean2 || !var2));
+  const bool bn2 = mode == 3 || mode == 5;
+  const bool bad_mode = mode < 0 || mode > 5 || (mode == 1 && !alpha) ||
+                        (mode >= 2 && mode != 4 && !r) ||
+                        (bn2 && (!gamma2 || !beta2 || !mean2 || !var2));
   if (dtype < 0 || dtype > 1 || rows < 0 || c <= 0 || !x || !out ||
       bad_stats || bad_mode) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -467,9 +500,10 @@ extern "C" int alink_bn_act(int mode, int dtype, const void* x, const void* r,
 }
 
 // The backward of alink_bn_act's mode with respect to the activations: g
-// (the output's gradient) and, for mode 1, x in; dx and, for mode 3, dr (the
-// shortcut's gradient) out; all (rows, c) row-major in the working type.
-// Mode 2's shortcut gradient is g itself: nothing is written for it.
+// (the output's gradient) and, for mode 1, x (for modes 4 and 5 the
+// forward's output) in; dx and, for modes 3 and 5, dr (the shortcut's
+// gradient) out; all (rows, c) row-major in the working type.  Mode 2's
+// shortcut gradient is g itself: nothing is written for it.
 extern "C" int alink_bn_act_backward(int mode, int dtype, const void* g,
                                      const void* x, void* dx, void* dr,
                                      int rows, int c, const void* gamma,
@@ -480,10 +514,11 @@ extern "C" int alink_bn_act_backward(int mode, int dtype, const void* g,
                                      float eps2, const void* alpha,
                                      void* stream) {
   const bool bad_stats = !gamma || !beta || !mean || !var;
-  const bool bad_mode = mode < 0 || mode > 3 ||
-                        (mode == 1 && (!alpha || !x)) ||
-                        (mode == 3 && (!dr || !gamma2 || !beta2 || !mean2 ||
-                                       !var2));
+  const bool bn2 = mode == 3 || mode == 5;
+  const bool bad_mode = mode < 0 || mode > 5 ||
+                        (mode == 1 && (!alpha || !x)) || (mode >= 4 && !x) ||
+                        (bn2 && (!dr || !gamma2 || !beta2 || !mean2 ||
+                                 !var2));
   if (dtype < 0 || dtype > 1 || rows < 0 || c <= 0 || !g || !dx ||
       bad_stats || bad_mode) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -7,9 +7,11 @@
 and its forward is the counterpart of ``vggface_resnet50_fused_apply``: the
 13 stride-1 bottlenecks run through ``ops.resblock.bottleneck_chain`` (kernel
 K3 on a CUDA tensor, its plain version on a CPU tensor), the stem and the 3
-strided blocks are plain PyTorch in bf16.  ``trainable=True`` gives the
-classifier's backbone (``models/classify.py``): every parameter, BN
-statistics included, trains, and the stride-1 blocks fold on every forward.
+strided blocks are cuDNN convolutions in bf16, each BN with its ReLU (and a
+block's residual add) one ``ops.bn_act`` pass, 10 a forward.
+``trainable=True`` gives the classifier's backbone (``models/classify.py``):
+every parameter, BN statistics included, trains, and the stride-1 blocks
+fold on every forward.
 
 ``ResNet50V15`` is torchvision's ResNet-50 (v1.5: a strided block's stride
 on its 3x3) to its three last stages' maps, RetinaFace-R50's backbone
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alink_tpu_torch.ops.bn_act import bn_params, frozen_bn
+from alink_tpu_torch.ops.bn_act import bn_act, bn_params, frozen_bn
 from alink_tpu_torch.ops.resblock import (BottleneckWeights, bottleneck_chain,
                                           kernel_weights)
 
@@ -144,14 +146,20 @@ class _Bottleneck(nn.Module):
             for c in (f, f, 4 * f) + ((4 * f,) if project else ()))
 
     def strided(self, y: torch.Tensor) -> torch.Tensor:
-        """Stride-2 block in plain PyTorch, BN in ``dtype`` (the JAX fused
-        forward's ``strided_block``).  NCHW in and out."""
+        """Stride-2 block, BN in ``dtype`` (the JAX fused forward's
+        ``strided_block``): convolutions, then each BN with its ReLU, and
+        the last BN with the projection's BN, the add and the ReLU, in
+        three ``bn_act`` passes.  NCHW in and out."""
         w = [c.weight.to(self.dtype) for c in self.conv]
-        ys = y[:, :, ::2, ::2]
-        z = torch.relu(self.bn[0](F.conv2d(ys, w[0])))
-        z = torch.relu(self.bn[1](F.conv2d(z, w[1], padding=1)))
-        z = self.bn[2](F.conv2d(z, w[2]))
-        return torch.relu(z + self.bn[3](F.conv2d(ys, w[3])))
+        # One channels-last copy of the strided input for both 1x1
+        # convolutions: cuDNN then writes their outputs channels-last, as
+        # bn_act reads them.
+        ys = y[:, :, ::2, ::2].contiguous(memory_format=torch.channels_last)
+        z = bn_act(F.conv2d(ys, w[0]), self.bn[0], relu=True)
+        z = bn_act(F.conv2d(z, w[1], padding=1), self.bn[1], relu=True)
+        return bn_act(F.conv2d(z, w[2]), self.bn[2],
+                      shortcut=F.conv2d(ys, w[3]), shortcut_bn=self.bn[3],
+                      relu=True)
 
 
 def fold_conv(conv: nn.Conv2d, bn: _FrozenBN, dtype: torch.dtype
@@ -201,13 +209,15 @@ def _tf_same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
 def _stem(x: torch.Tensor, conv: nn.Conv2d, bn: _FrozenBN,
           dtype: torch.dtype) -> torch.Tensor:
     """The keras_vggface stem on NHWC ``x``: TF-'SAME' 7x7 s2 conv (pads
-    asymmetrically, (2, 3) at 224), BN, ReLU, then a VALID 3x3 s2 max-pool
-    (55x55 at 224).  NCHW out."""
-    y = x.to(dtype).permute(0, 3, 1, 2)
+    asymmetrically, (2, 3) at 224), BN and ReLU (one ``bn_act`` pass), then
+    a VALID 3x3 s2 max-pool (55x55 at 224).  NCHW out."""
+    # NHWC packed (one cast, or one copy where ``x`` is a permuted NCHW
+    # tensor), so the convolution writes channels-last, as bn_act reads.
+    y = x.to(dtype, memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
     ph = _tf_same_pad(y.shape[2], 7, 2)
     pw = _tf_same_pad(y.shape[3], 7, 2)
     y = F.conv2d(F.pad(y, pw + ph), conv.weight.to(dtype), None, 2)
-    return F.max_pool2d(torch.relu(bn(y)), 3, 2)
+    return F.max_pool2d(bn_act(y, bn, relu=True), 3, 2)
 
 
 class FoldCache(nn.Module):

@@ -204,9 +204,22 @@ p. the fused BN / PReLU / residual add (``ops.bn_act``, ArcFace's three
    ``alink_bn_act_backward``, each case above also held to
    ``bn_act_backward_reference`` and timed) against the module chain's
    (bit-equal, cuDNN deterministic), and one FGSM step
-   (``fgsm_pairs``, 32 pairs) through each, timed in turns.  The kernels
-   line counts bn_act's launches in the r100 forwards of (c) and (k)'s
-   profiles, each held to 149 a forward.
+   (``fgsm_pairs``, 32 pairs) through each, timed in turns.  Then the ReLU
+   modes (``bn_relu``, ``bn_add_bn_relu``) at every (mode, H, C) a
+   VGGFace-ResNet50 forward calls them with, at batch 32 and 1,024 (bf16;
+   and at f32, a padded width and a misaligned pointer), with NaN, -0 and
+   +0 planted where the ReLU reads them: forward and backward bit for bit
+   (NaN and the sign of a zero included) to ``bn_act_reference`` and
+   ``bn_act_backward_reference``, each timed beside its bytes bound and
+   the plain version, and summed over a forward's 10 launches; featurize
+   at both batches through the kernel against the ``_FrozenBN`` /
+   ``torch.relu`` / ``+`` module chain (bit-equal, and the FGSM pixel
+   gradient on 8 faces, 10 backward launches), both timed in turns and
+   traced (every kernel by name), ``launches.bn_act`` 10 a featurize call
+   in ``counting()`` and ``counters.json``.  The kernels line counts
+   bn_act's launches in the r100 forwards of (c) and (k)'s profiles, each
+   held to 149 a forward, and in (p)'s held VGG featurize calls, 10
+   each.
 q. the ViT attention core (``ops.attention``, ``csrc/attention.cu``):
    the kernel against ``attention_core_reference`` (float32, TF32 off) on
    strided views of an (N, T, 3, H, d) bf16 qkv tensor, as the ViT gives
@@ -3506,35 +3519,40 @@ P_CALLS = 5              # captured calls a shape (20 would hold ~30 GB)
 P_FGSM_PAIRS = 32        # pairs of the timed FGSM step
 
 
-def _module_chain(x, bn, prelu=None, shortcut=None, shortcut_bn=None):
-    """``ops.bn_act.bn_act`` through the ``_FrozenBN`` / ``_PReLU`` modules
-    and ``+``: the unfused path ArcFace ran before the fused op."""
+def _module_chain(x, bn, prelu=None, shortcut=None, shortcut_bn=None,
+                  relu=False):
+    """``ops.bn_act.bn_act`` through the ``_FrozenBN`` / ``_PReLU`` modules,
+    ``+`` and ``torch.relu``: the unfused path ArcFace and VGGFace-ResNet50
+    ran before the fused op."""
     y = bn(x)
     if prelu is not None:
         return prelu(y)
-    if shortcut is None:
-        return y
-    return y + (shortcut.to(bn.dtype) if shortcut_bn is None
-                else shortcut_bn(shortcut))
+    if shortcut is not None:
+        y = y + (shortcut.to(bn.dtype) if shortcut_bn is None
+                 else shortcut_bn(shortcut))
+    return torch.relu(y) if relu else y
 
 
-def _bn_act_mode(prelu, shortcut, shortcut_bn) -> str:
-    return ("bn_prelu" if prelu is not None else "bn_add_bn"
+def _bn_act_mode(prelu, shortcut, shortcut_bn, relu=False) -> str:
+    mode = ("bn_prelu" if prelu is not None else "bn_add_bn"
             if shortcut_bn is not None else "bn_add" if shortcut is not None
             else "bn")
+    return mode + "_relu" if relu else mode
 
 
 @contextlib.contextmanager
-def _arcface_bn_act(fn):
-    """ArcFace's ``bn_act`` swapped for ``fn`` inside the block (the
-    model's own forward, the stem, units and head unchanged)."""
-    import alink_tpu_torch.models.arcface as arcface
+def _swap_bn_act(fn, family: str = "arcface"):
+    """The ``bn_act`` of ``models.<family>`` swapped for ``fn`` inside the
+    block (ArcFace's, or with "resnet" VGGFace-ResNet50's stem and strided
+    blocks; the model's own forward otherwise unchanged)."""
+    import importlib
 
-    real, arcface.bn_act = arcface.bn_act, fn
+    mod = importlib.import_module(f"alink_tpu_torch.models.{family}")
+    real, mod.bn_act = mod.bn_act, fn
     try:
         yield
     finally:
-        arcface.bn_act = real
+        mod.bn_act = real
 
 
 def _randomise_bn(model, g: torch.Generator) -> None:
@@ -3614,7 +3632,7 @@ def phase_bn_act(dev, smi: str) -> dict:
                       tuple(x.shape)))
         return B.bn_act(x, bn, prelu, shortcut, shortcut_bn)
 
-    with torch.no_grad(), _arcface_bn_act(recording):
+    with torch.no_grad(), _swap_bn_act(recording):
         model(photos)
     check(len(calls) == 149, f"bn_act: {len(calls)} calls an r100 forward")
     shapes = sorted(set(calls), key=lambda ms: (-ms[1][2], ms[1][1], ms[0]))
@@ -3705,7 +3723,7 @@ def phase_bn_act(dev, smi: str) -> dict:
 
     with torch.no_grad():
         fused = model(photos)
-        with _arcface_bn_act(_module_chain):
+        with _swap_bn_act(_module_chain):
             chain = model(photos)
     check(bool(torch.isfinite(fused).all()), "bn_act: r100 forward not finite")
     diff = maxdiff(fused, chain)
@@ -3714,7 +3732,7 @@ def phase_bn_act(dev, smi: str) -> dict:
           f"module chain, max |diff| {diff:.3e}")
 
     def forward_ms(fn) -> float:
-        with torch.no_grad(), _arcface_bn_act(fn):
+        with torch.no_grad(), _swap_bn_act(fn):
             return cuda_ms(lambda: model(photos), iters=5, warmup=2)
 
     times = {B.bn_act: [], _module_chain: []}
@@ -3730,7 +3748,7 @@ def phase_bn_act(dev, smi: str) -> dict:
     for side in ("fused", "chain"):
         log_dir = work / f"bn_act_{side}"
         fn = B.bn_act if side == "fused" else _module_chain
-        with torch.no_grad(), _arcface_bn_act(fn), \
+        with torch.no_grad(), _swap_bn_act(fn), \
                 profiling.trace(str(log_dir)) as prof:
             model(photos)
             torch.cuda.synchronize()
@@ -3759,7 +3777,7 @@ def phase_bn_act(dev, smi: str) -> dict:
         grads = []
         for fn in (B.bn_act, _module_chain):
             xi = x.clone().requires_grad_(True)
-            with counting() as made, _arcface_bn_act(fn):
+            with counting() as made, _swap_bn_act(fn):
                 (model(xi) * w).sum().backward()
             grads.append(xi.grad)
             want = 149 if fn is B.bn_act else 0
@@ -3793,7 +3811,7 @@ def phase_bn_act(dev, smi: str) -> dict:
         return torch.softmax(d @ w.t(), dim=-1)
 
     def fgsm_ms(fn) -> float:
-        with _arcface_bn_act(fn):
+        with _swap_bn_act(fn):
             return cuda_ms(lambda: fgsm_pairs(predict, head_w, left, right,
                                               labels), iters=5, warmup=2)
 
@@ -3807,6 +3825,234 @@ def phase_bn_act(dev, smi: str) -> dict:
     print(f"bn_act: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"err": err, "ms": tot[0], "call_ms": tot[1], "plain_ms": tot[2],
             "bound_ms": tot[3], "bound_by": "bytes", "library_ms": tot[4]}
+
+
+V_BATCHES = (32, 1024)   # the A2 cell's DE featurize and the noise cell's
+V_FGSM = 8               # faces under the VGG FGSM gradient check
+
+
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ (NaN and the sign of a zero included);
+    -1 for another dtype or shape."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return -1
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return int((a.view(bits) != b.view(bits)).sum())
+
+
+def _plant(args) -> None:
+    """-0 and +0 in rows 0 and 1 of channels 0 and 1, a NaN in channel 2,
+    and the BN's shift -0 and +0 in channels 0 and 1, in each activation
+    of a ``_bn_act_case``: the ReLU's input is then a signed zero there."""
+    x, bn, _, _, shortcut, shortcut_bn = args
+    for t, p in ((x, bn), (shortcut, shortcut_bn)):
+        if t is None:
+            continue
+        t[:, :2, 0] = -0.0
+        t[:, :2, 1] = 0.0
+        t[:, 2, 2, 0] = float("nan")
+        p.mean[:2] = 0.0
+        p.beta[0], p.beta[1] = -0.0, 0.0
+
+
+def _device_kernels(prof) -> dict:
+    """{kernel name: (launches, device ms)} of a ``profiling.trace``."""
+    out: dict = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))):
+            n, ms = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, ms + 1e-3 * (e.time_range.end
+                                               - e.time_range.start))
+    return out
+
+
+def phase_bn_act_vgg(dev, smi: str) -> int:
+    """(p, VGG) ``bn_act``'s ReLU modes in VGGFace-ResNet50's stem and
+    strided blocks: each (mode, H, C) a forward calls at batch 32 and
+    1,024, NaN and signed zeros planted, forward and backward bit-equal to
+    the plain chain and timed beside their bytes bound; featurize at both
+    batches bit-equal to the module chain (and the FGSM pixel gradient),
+    both timed in turns and traced, ``launches.bn_act`` 10 a forward.
+    Returns the launches of the held featurize calls."""
+    from alink_tpu_torch.drivers.common import make_resnet50_featurizer
+    from alink_tpu_torch.models import VGGFaceResNet50
+    from alink_tpu_torch.ops import bn_act as B
+    from alink_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 21)
+    model = VGGFaceResNet50(generator=g, device=dev)
+    _randomise_bn(model, g)
+    model.refold()
+    featurize, _ = make_resnet50_featurizer(model=model)
+    photos = {n: (torch.rand((n, 224, 224, 3), generator=g) * 255).to(dev)
+              for n in V_BATCHES}
+
+    calls = []
+
+    def recording(x, bn, prelu=None, shortcut=None, shortcut_bn=None,
+                  relu=False):
+        calls.append((_bn_act_mode(prelu, shortcut, shortcut_bn, relu),
+                      tuple(x.shape[1:])))
+        return B.bn_act(x, bn, prelu, shortcut, shortcut_bn, relu)
+
+    with torch.no_grad(), _swap_bn_act(recording, "resnet"):
+        featurize(photos[32])
+    check(len(calls) == 10 and sum(m == "bn_add_bn_relu" for m, _ in calls)
+          == 3, f"bn_act: VGG forward calls {calls}")
+    shapes = sorted(set(calls), key=lambda ms: (-ms[1][1], ms[1][0]))
+    gd = torch.Generator(device=dev).manual_seed(SEED + 21)
+    per = {}
+    cases = [(m, (n,) + sh, torch.bfloat16, 0) for n in V_BATCHES
+             for m, sh in shapes]
+    cases += [("bn_relu", (32, 171, 28, 28), torch.bfloat16, 0),
+              ("bn_add_bn_relu", (32, 512, 14, 14), torch.bfloat16, 1),
+              ("bn_relu", (32, 64, 56, 56), torch.float32, 0),
+              ("bn_add_bn_relu", (32, 171, 7, 7), torch.float32, 0)]
+    for mode, shape, dtype, offset in cases:
+        args = _bn_act_case(mode.replace("_relu", ""), shape, dtype, gd,
+                            offset)
+        _plant(args)
+        got = B.bn_act_kernel(*args, relu=True)
+        want = B.bn_act_reference(*args, relu=True)
+        zeros = int((want == 0).logical_and(torch.signbit(want)).sum())
+        differ = _bits_differ(got, want)
+        check(differ == 0 and bool(want.isnan().any()),
+              f"bn_act {mode} {shape} {dtype} offset {offset}: {differ} "
+              f"elements differ in their bits")
+        x, bn, _, _, shortcut, shortcut_bn = args
+        grad = _bn_act_case("bn", shape, dtype, gd, offset)[0]
+        bargs = (grad, got, bn, dtype, None, shortcut is not None,
+                 shortcut_bn, True)
+        got_b = B.bn_act_backward_kernel(*bargs)
+        want_b = B.bn_act_backward_reference(*bargs)
+        for gb, wb in zip(got_b, want_b):
+            differ = 0 if gb is None and wb is None else (
+                -1 if gb is None or wb is None else _bits_differ(gb, wb))
+            check(differ == 0, f"bn_act backward {mode} {shape} {dtype} "
+                  f"offset {offset}: {differ} elements differ in their bits")
+        # graph_ms holds a replay to an eager call by torch.equal, which a
+        # NaN never passes: time the same shapes with the NaN made 0.
+        for t in (x, shortcut):
+            if t is not None:
+                t.nan_to_num_(0.0)
+        bargs = (grad, B.bn_act_kernel(*args, relu=True)) + bargs[2:]
+        elt = torch.finfo(dtype).bits // 8
+        reads = 2 if shortcut is not None else 1
+        nbytes = (reads + 1) * got.numel() * elt
+        b_bytes = (3 if shortcut is None else 4) * got.numel() * elt
+        ms, call = kernel_ms(lambda: B.bn_act_kernel(*args, relu=True),
+                             "launches.bn_act", calls=P_CALLS)
+        plain = graph_ms(lambda: B.bn_act_reference(*args, relu=True),
+                         calls=P_CALLS)
+        b_ms, _ = kernel_ms(lambda: B.bn_act_backward_kernel(*bargs)[0],
+                            "launches.bn_act_backward", calls=P_CALLS)
+        b_plain = graph_ms(lambda: B.bn_act_backward_reference(*bargs)[0],
+                           calls=P_CALLS)
+        bound = bound_s(0, H100_BF16_TFLOPS, nbytes)[0] * 1e3
+        b_bound = bound_s(0, H100_BF16_TFLOPS, b_bytes)[0] * 1e3
+        if offset == 0 and dtype == torch.bfloat16:
+            per[(mode, shape)] = (ms, plain, bound, b_ms, b_plain, b_bound)
+        print(f"bn_act {mode} {shape} {str(dtype)[6:]}"
+              f"{' offset 1' if offset else ''}: bit-equal, NaN and {zeros} "
+              f"output -0; kernel {ms:.4f} ms (per call from Python "
+              f"{call:.4f}), bound {bound:.4f} ({100 * bound / ms:.1f} %), "
+              f"plain {plain:.4f} ms; backward bit-equal, kernel "
+              f"{b_ms:.4f} ms, bound {b_bound:.4f} "
+              f"({100 * b_bound / b_ms:.1f} %), plain {b_plain:.4f} ms",
+              flush=True)
+        del args, got, want, x, shortcut, grad, bargs, got_b, want_b
+        torch.cuda.empty_cache()
+    for n in V_BATCHES:
+        tot = [sum(per[(m, (n,) + sh)][i] for m, sh in calls)
+               for i in range(6)]
+        print(f"bn_act per VGG forward at batch {n} (10 launches): kernel "
+              f"{tot[0]:.3f} ms, bound {tot[2]:.3f} "
+              f"({100 * tot[2] / tot[0]:.1f} %), plain {tot[1]:.3f} ms; "
+              f"backward {tot[3]:.3f} ms, bound {tot[5]:.3f} "
+              f"({100 * tot[5] / tot[3]:.1f} %), plain {tot[4]:.3f} ms on "
+              f"{smi}", flush=True)
+
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        launched = 0
+        # Photos arrive packed NHWC or as NCHW tensors permuted to NHWC
+        # (the loop cells' synthetic people): the stem packs both.
+        permuted = photos[32].permute(0, 3, 1, 2).contiguous().permute(
+            0, 2, 3, 1)
+        for n, x in [(n, photos[n]) for n in V_BATCHES] + [(32, permuted)]:
+            with torch.no_grad():
+                with counting() as made:
+                    fused = featurize(x)
+                    torch.cuda.synchronize()
+                with _swap_bn_act(_module_chain, "resnet"):
+                    chain = featurize(x)
+            launched += made["launches.bn_act"]
+            check(made["launches.bn_act"] == 10 * made["featurize.calls"]
+                  == 10, f"bn_act: {made['launches.bn_act']} launches over "
+                  f"{made['featurize.calls']} featurize calls")
+            check(bool(torch.isfinite(fused).all()) and torch.equal(
+                fused, chain), f"bn_act: VGG features at batch {n} against "
+                f"the module chain, max |diff| {maxdiff(fused, chain):.3e}")
+        x = photos[32][:V_FGSM]
+        w = torch.randn((V_FGSM, 2048), generator=g).to(dev)
+        grads = []
+        for fn in (B.bn_act, _module_chain):
+            xi = x.clone().requires_grad_(True)
+            with counting() as made, _swap_bn_act(fn, "resnet"):
+                (featurize(xi) * w).sum().backward()
+            grads.append(xi.grad)
+            want = 10 if fn is B.bn_act else 0
+            check(made["launches.bn_act_backward"] == want,
+                  f"bn_act: {made['launches.bn_act_backward']} backward "
+                  f"launches in one VGG backward, want {want}")
+        check(bool(grads[0].abs().sum() > 0) and torch.equal(*grads),
+              f"bn_act: VGG FGSM gradient against the module chain, max "
+              f"|diff| {maxdiff(*grads):.3e}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det, bench
+    print(f"bn_act: VGG features at batch {V_BATCHES} (and 32 permuted from "
+          f"NCHW) and the FGSM gradient ({V_FGSM}) bit-equal to the module "
+          f"chain; launches.bn_act 10 a featurize call", flush=True)
+
+    for n in V_BATCHES:
+        times = {B.bn_act: [], _module_chain: []}
+        for fn in (B.bn_act, _module_chain, _module_chain, B.bn_act):
+            with torch.no_grad(), _swap_bn_act(fn, "resnet"):
+                times[fn].append(cuda_ms(lambda: featurize(photos[n]),
+                                         iters=5, warmup=2))
+        print("bn_act: VGG featurize at batch {} ms (per call from Python, "
+              "in turns): fused {}, module chain {}".format(
+                  n, [f"{t:.2f}" for t in times[B.bn_act]],
+                  [f"{t:.2f}" for t in times[_module_chain]]), flush=True)
+        work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+        for side, fn in (("fused", B.bn_act), ("chain", _module_chain)):
+            log_dir = work / f"vgg_{side}_{n}"
+            with torch.no_grad(), _swap_bn_act(fn, "resnet"), \
+                    profiling.trace(str(log_dir)) as prof:
+                featurize(photos[n])
+                torch.cuda.synchronize()
+            counted = json.loads((log_dir / "counters.json").read_text())
+            want = 10 * counted["featurize.calls"] if side == "fused" else 0
+            check(counted["launches.bn_act"] == want, f"bn_act: VGG "
+                  f"counters.json {side} launches.bn_act "
+                  f"{counted['launches.bn_act']}, want {want}")
+            kernels = sorted(_device_kernels(prof).items(),
+                             key=lambda kv: -kv[1][1])
+            total = sum(ms for _, ms in (v for _, v in kernels))
+            print(f"bn_act: VGG featurize at batch {n}, {side}: "
+                  f"{sum(c for _, (c, _) in kernels)} kernels, {total:.3f} "
+                  f"device ms", flush=True)
+            for name, (c, ms) in kernels:
+                print(f"  {ms:9.4f} ms {c:4d}x {name[:160]}", flush=True)
+    print(f"bn_act VGG: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launched
 
 
 Q_BATCH = 256            # faces of serve_vitl_typical's call
@@ -4389,6 +4635,8 @@ def main() -> int:
     stamp("o")
     numbers["bn_act"] = phase_bn_act(dev, smi)
     torch.cuda.empty_cache()
+    vgg_bn_act = phase_bn_act_vgg(dev, smi)
+    torch.cuda.empty_cache()
     stamp("p")
     counts["attention"], numbers["attention"] = phase_attention(dev, smi)
     torch.cuda.empty_cache()
@@ -4417,8 +4665,10 @@ def main() -> int:
                              + mtp_counts["pair_score"]
                              + par_counts["pair_score"])
     # bn_act: the r100 forwards of the serving slice (c), of (k)'s
-    # profiles and of (r)'s pipeline call, 149 each.
-    counts["bn_act"] += rest_counts["bn_act"] + retina_counts["bn_act"]
+    # profiles and of (r)'s pipeline call, 149 each, and (p)'s held VGG
+    # featurize calls, 10 each.
+    counts["bn_act"] += (rest_counts["bn_act"] + retina_counts["bn_act"]
+                         + vgg_bn_act)
     counts["affine_warp"] += (resume_counts["affine_warp"]
                               + rest_counts["affine_warp"]
                               + par_counts["affine_warp"]

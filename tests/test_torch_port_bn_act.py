@@ -1,9 +1,11 @@
-"""The fused BN / PReLU / residual-add op (``ops/bn_act.py``) on the CPU.
+"""The fused BN / PReLU / residual-add / ReLU op (``ops/bn_act.py``) on the
+CPU.
 
 Its plain version must be the modules' own arithmetic bit for bit
-(``_FrozenBN``, ``_PReLU``, ``+``), in bf16 and f32, at vector-friendly
-and tensor-parallel padded widths; ArcFace through it must equal the same
-model run through the modules (forward and every gradient, the pixels'
+(``_FrozenBN``, ``_PReLU``, ``+``, ``torch.relu``), in bf16 and f32, at
+vector-friendly and tensor-parallel padded widths, with NaN and signed
+zeros planted; ArcFace and VGGFace-ResNet50 through it must equal the same
+models run through the modules (forward and every gradient, the pixels'
 for FGSM included); the op must dispatch as documented.  The CUDA kernel
 itself is held to the plain version on the card by ``chip_smoke.py``
 (phase p).
@@ -13,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from alink_tpu_torch.models import ArcFaceResNet100
+import torch.nn.functional as F
+
+from alink_tpu_torch.models import ArcFaceResNet100, VGGFaceResNet50
 from alink_tpu_torch.models.arcface import _IRUnit, _PReLU
-from alink_tpu_torch.models.resnet import MXNET_BN_EPS, _conv, _FrozenBN
+from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _conv, _FrozenBN,
+                                           _tf_same_pad)
 from alink_tpu_torch.ops import bn_act as B
+from alink_tpu_torch.ops.resblock import bottleneck_chain
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -51,16 +57,40 @@ def _act(shape, dtype, seed: int, scale: float = 2.0) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
+def _plant(x: torch.Tensor, bn: _FrozenBN | None = None) -> torch.Tensor:
+    """``x`` with -0 and +0 in rows 0 and 1 of channels 0 and 1 and a NaN in
+    channel 2; ``bn``'s shift made -0 in channel 0 and +0 in channel 1, so
+    that the BN's output (and a ReLU's input) is a signed zero there."""
+    x = x.clone()
+    with torch.no_grad():
+        x[:, :2, 0] = -0.0
+        x[:, :2, 1] = 0.0
+        x[:, 2, 2, 0] = float("nan")
+        if bn is not None:
+            bn.mean[:2] = 0.0
+            bn.beta[0], bn.beta[1] = -0.0, 0.0
+    return x
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaN and the sign of a zero included)."""
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(bits),
+                            b.contiguous().view(bits)))
+
+
 # -- the plain version against the modules -----------------------------------
 
-@pytest.mark.parametrize("c", [64, 171])
+@pytest.mark.parametrize("c", [64, 171, 2048])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", ["bn", "bn_prelu", "bn_add_identity",
-                                  "bn_add_projecting"])
+                                  "bn_add_projecting", "bn_relu",
+                                  "bn_add_bn_relu"])
 def test_reference_is_the_modules_bit_for_bit(case, dtype, c):
-    x = _act((3, c, 5, 4), dtype, 1)
-    r = _act((3, c, 5, 4), dtype, 2)
     bn, bn3 = _bn(c, dtype, 3), _bn(c, dtype, 4)
+    x = _plant(_act((3, c, 5, 4), dtype, 1), bn)
+    r = _plant(_act((3, c, 5, 4), dtype, 2), bn3)
     prelu = _PReLU(c, dtype)
     _randomise(prelu, 5)
     p, p3 = B.bn_params(bn), B.bn_params(bn3)
@@ -76,15 +106,29 @@ def test_reference_is_the_modules_bit_for_bit(case, dtype, c):
         want = bn(x) + r.to(dtype)
         got = B.bn_act_reference(x, p, dtype, shortcut=r)
         via = B.bn_act(x, bn, shortcut=r)
-    else:
+    elif case == "bn_add_projecting":
         want = bn(x) + bn3(r)
         got = B.bn_act_reference(x, p, dtype, shortcut=r, shortcut_bn=p3)
         via = B.bn_act(x, bn, shortcut=r, shortcut_bn=bn3)
+    elif case == "bn_relu":
+        want = torch.relu(bn(x))
+        got = B.bn_act_reference(x, p, dtype, relu=True)
+        via = B.bn_act(x, bn, relu=True)
+    else:
+        want = torch.relu(bn(x) + bn3(r))
+        got = B.bn_act_reference(x, p, dtype, shortcut=r, shortcut_bn=p3,
+                                 relu=True)
+        via = B.bn_act(x, bn, shortcut=r, shortcut_bn=bn3, relu=True)
     assert want.dtype == got.dtype == via.dtype == dtype
-    assert torch.equal(got, want)
-    assert torch.equal(via, want)
-    # The slope and the shortcut (and its BN) must matter here.
-    assert (case == "bn") == torch.equal(want, bn(x))
+    assert _same(got, want)
+    assert _same(via, want)
+    # The planted values reach the output: NaN, and signed zeros where
+    # nothing is added.
+    assert bool(want[:, 2, 2, 0].isnan().all())
+    if case in ("bn", "bn_prelu", "bn_relu"):
+        assert bool(torch.signbit(bn(x)[:, 0, 0]).all())
+    # The slope, the shortcut (and its BN) and the ReLU must matter here.
+    assert (case == "bn") == _same(want, bn(x))
 
 
 def _plain_unit(unit: _IRUnit, x: torch.Tensor) -> torch.Tensor:
@@ -168,6 +212,82 @@ def test_arcface_gradients_equal_the_module_chain(dtype):
         assert torch.equal(got, want)
 
 
+def _parent_stem(x, conv, bn, dtype):
+    """``models.resnet._stem`` as it ran before the op: the BN module, then
+    ``torch.relu``."""
+    y = x.to(dtype).permute(0, 3, 1, 2)
+    ph = _tf_same_pad(y.shape[2], 7, 2)
+    pw = _tf_same_pad(y.shape[3], 7, 2)
+    y = F.conv2d(F.pad(y, pw + ph), conv.weight.to(dtype), None, 2)
+    return F.max_pool2d(torch.relu(bn(y)), 3, 2)
+
+
+def _parent_strided(block, y):
+    """``_Bottleneck.strided`` as it ran before the op: four BN modules,
+    three ``torch.relu`` and the ``+``."""
+    w = [c.weight.to(block.dtype) for c in block.conv]
+    ys = y[:, :, ::2, ::2]
+    z = torch.relu(block.bn[0](F.conv2d(ys, w[0])))
+    z = torch.relu(block.bn[1](F.conv2d(z, w[1], padding=1)))
+    z = block.bn[2](F.conv2d(z, w[2]))
+    return torch.relu(z + block.bn[3](F.conv2d(ys, w[3])))
+
+
+def _parent_vgg_forward(m: VGGFaceResNet50, x: torch.Tensor) -> torch.Tensor:
+    """``VGGFaceResNet50.forward`` through the parent's stem and strided
+    blocks (the stride-1 blocks as the model runs them)."""
+    y = _parent_stem(x, m.conv[0], m.bn[0], m.dtype)
+    runs, _ = m._prepared(x.device)
+    y = m._stages(y, runs, lambda t, i: _parent_strided(m.blocks[i], t),
+                  bottleneck_chain)[-1]
+    return y.float().mean(dim=(2, 3))
+
+
+def _tiny_vgg(trainable: bool, seed: int = 40) -> VGGFaceResNet50:
+    """Published widths, one block a stage (stem, three strided blocks and
+    one stride-1 block: the op's ten calls and K3's plain version)."""
+    m = VGGFaceResNet50(stage_sizes=(1, 1, 1, 1), trainable=trainable,
+                        generator=torch.Generator().manual_seed(seed))
+    _randomise(m, seed + 1)
+    m.refold()
+    return m
+
+
+def _vgg_photos(n: int = 2, seed: int = 42) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((n, 40, 40, 3), generator=g) * 255 - 128
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_permuted"])
+@pytest.mark.parametrize("trainable", [False, True])
+def test_vggface_forward_equals_the_parent_chain(trainable, layout):
+    """The stem's and strided blocks' ``bn_act`` passes against the chain
+    they replace: the features, and the pixel gradient FGSM takes (with
+    ``trainable`` every parameter's too), bit for bit, on packed NHWC
+    photos and on NCHW ones permuted to NHWC (as the loop cells' synthetic
+    people arrive)."""
+    m = _tiny_vgg(trainable)
+    x = _vgg_photos()
+    if layout == "nchw_permuted":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    w = torch.randn((2, 2048), generator=torch.Generator().manual_seed(43))
+    with torch.no_grad():
+        assert _same(m(x), _parent_vgg_forward(m, x))
+    grads = []
+    for forward in (m, lambda t: _parent_vgg_forward(m, t)):
+        m.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        (forward(xi) * w).sum().backward()
+        grads.append([xi.grad] + [p.grad for p in m.parameters()])
+    assert grads[0][0].abs().sum() > 0
+    # Frozen, the parameters take no gradient; trainable, every one does.
+    assert all(g is not None for g in grads[0][1:]) == trainable
+    for got, want in zip(*grads):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert _same(got, want)
+
+
 def test_frozen_featurizer_gradient_flows_to_the_pixels_only():
     """``drivers/alink_arc``'s featurizer: parameters frozen, the pixels
     differentiable (FGSM)."""
@@ -191,10 +311,14 @@ def test_autograd_function_only_where_a_gradient_is_wanted():
         assert B.bn_act(x, bn).grad_fn is None
 
 
+MODES = ["bn", "bn_prelu", "bn_add", "bn_add_bn", "bn_relu",
+         "bn_add_bn_relu"]
+
+
 @pytest.mark.parametrize("trainable", [False, True])
 @pytest.mark.parametrize("x_dtype", DTYPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("mode", ["bn", "bn_prelu", "bn_add", "bn_add_bn"])
+@pytest.mark.parametrize("mode", MODES)
 def test_backward_matches_plain_autograd(mode, dtype, x_dtype, trainable):
     """Every input's gradient through the function's backward against
     plain autograd through the modules, in each mode, working type and
@@ -208,7 +332,10 @@ def test_backward_matches_plain_autograd(mode, dtype, x_dtype, trainable):
     x, r = _act((2, c, 4, 3), x_dtype, 23), _act((2, c, 4, 3), x_dtype, 24)
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(25))
     kw = {"bn": {}, "bn_prelu": {"prelu": prelu}, "bn_add": {"shortcut": 1},
-          "bn_add_bn": {"shortcut": 1, "shortcut_bn": bn3}}[mode]
+          "bn_add_bn": {"shortcut": 1, "shortcut_bn": bn3},
+          "bn_relu": {"relu": True},
+          "bn_add_bn_relu": {"shortcut": 1, "shortcut_bn": bn3,
+                             "relu": True}}[mode]
     runs = []
     for fused in (True, False):
         for mod in (bn, bn3, prelu):
@@ -228,29 +355,38 @@ def test_backward_matches_plain_autograd(mode, dtype, x_dtype, trainable):
             assert torch.equal(got, want)
 
 
-def _module_chain(x, bn, prelu=None, shortcut=None, shortcut_bn=None):
+def _module_chain(x, bn, prelu=None, shortcut=None, shortcut_bn=None,
+                  relu=False):
     y = bn(x)
     if prelu is not None:
         return prelu(y)
-    if shortcut is None:
-        return y
-    return y + (shortcut.to(bn.dtype) if shortcut_bn is None
-                else shortcut_bn(shortcut))
+    if shortcut is not None:
+        y = y + (shortcut.to(bn.dtype) if shortcut_bn is None
+                 else shortcut_bn(shortcut))
+    return torch.relu(y) if relu else y
 
 
-@pytest.mark.parametrize("mode", ["bn", "bn_prelu", "bn_add", "bn_add_bn"])
+@pytest.mark.parametrize("mode", MODES)
 def test_backward_keeps_the_activations_only_where_it_reads_them(mode):
-    """With frozen statistics only the PReLU's mask needs an activation
-    (x, to recompute the BN output); the add and the BN need none."""
+    """With frozen statistics only the masks need an activation: the
+    PReLU's x (to recompute the BN output), the ReLU's own output (one
+    read, where recomputing it would read x and the shortcut); the add and
+    the BN need none."""
     bn, bn3 = _bn(8, torch.bfloat16, 26), _bn(8, torch.bfloat16, 27)
     prelu = _PReLU(8, torch.bfloat16).requires_grad_(False)
     x = _act((1, 8, 3, 3), torch.bfloat16, 28).requires_grad_(True)
     r = _act((1, 8, 3, 3), torch.bfloat16, 29).requires_grad_(True)
     kw = {"bn": {}, "bn_prelu": {"prelu": prelu}, "bn_add": {"shortcut": r},
-          "bn_add_bn": {"shortcut": r, "shortcut_bn": bn3}}[mode]
-    saved = B.bn_act(x, bn, **kw).grad_fn.saved_tensors
-    big = [t for t in saved if t is not None and t.dim() == 4]
-    assert len(big) == (1 if mode == "bn_prelu" else 0)
+          "bn_add_bn": {"shortcut": r, "shortcut_bn": bn3},
+          "bn_relu": {"relu": True},
+          "bn_add_bn_relu": {"shortcut": r, "shortcut_bn": bn3,
+                             "relu": True}}[mode]
+    out = B.bn_act(x, bn, **kw)
+    big = [t for t in out.grad_fn.saved_tensors
+           if t is not None and t.dim() == 4]
+    assert len(big) == (0 if mode in ("bn", "bn_add", "bn_add_bn") else 1)
+    if "relu" in kw:
+        assert big[0] is out or _same(big[0], out)
 
 
 def test_kernel_entry_refuses_what_it_does_not_take():
@@ -264,33 +400,56 @@ def test_kernel_entry_refuses_what_it_does_not_take():
         B.bn_act(x, bn, prelu=_PReLU(8, torch.float32))
 
 
+def test_relu_takes_no_prelu_and_a_shortcut_with_its_bn():
+    """No mode is a PReLU and a ReLU, or a ReLU after a shortcut without
+    its BN: the op refuses both on every device."""
+    bn = _bn(8, torch.bfloat16, 38)
+    x = _act((1, 8, 2, 2), torch.bfloat16, 39)
+    with pytest.raises(ValueError, match="PReLU"):
+        B.bn_act(x, bn, prelu=_PReLU(8, torch.bfloat16), relu=True)
+    with pytest.raises(ValueError, match="shortcut's BN"):
+        B.bn_act(x, bn, shortcut=x, relu=True)
+    with pytest.raises(ValueError, match="shortcut_bn without"):
+        B.bn_act(x, bn, shortcut_bn=bn, relu=True)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("mode", ["bn", "bn_prelu", "bn_add", "bn_add_bn"])
+@pytest.mark.parametrize("mode", MODES)
 def test_backward_reference_is_plain_autograd(mode, dtype):
     """``bn_act_backward_reference`` (what the backward kernel is held to
     on the card) against autograd through ``bn_act_reference``, at a
-    vector-friendly and a padded width."""
-    for c in (16, 171):
+    vector-friendly, a padded and a wide width, with NaN and signed zeros
+    planted (the ReLU's mask at 0 and at NaN)."""
+    for c in (16, 171, 2048):
         bn, bn3 = _bn(c, dtype, 30), _bn(c, dtype, 31)
         prelu = _PReLU(c, dtype)
         _randomise(prelu, 32)
+        x = _plant(_act((2, c, 3, 5), dtype, 33), bn).requires_grad_(True)
+        r = _plant(_act((2, c, 3, 5), dtype, 34), bn3).requires_grad_(True)
         p, p3 = B.bn_params(bn), B.bn_params(bn3)
-        x = _act((2, c, 3, 5), dtype, 33).requires_grad_(True)
-        r = _act((2, c, 3, 5), dtype, 34).requires_grad_(True)
         grad = _act((2, c, 3, 5), dtype, 35)
         kw = {"bn": {}, "bn_prelu": {"alpha": prelu.alpha.detach()},
               "bn_add": {"shortcut": r},
-              "bn_add_bn": {"shortcut": r, "shortcut_bn": p3}}[mode]
+              "bn_add_bn": {"shortcut": r, "shortcut_bn": p3},
+              "bn_relu": {"relu": True},
+              "bn_add_bn_relu": {"shortcut": r, "shortcut_bn": p3,
+                                 "relu": True}}[mode]
         out = B.bn_act_reference(x, p, dtype, **kw)
         want = torch.autograd.grad(out, [x, r] if "shortcut" in kw else [x],
                                    grad)
+        relu = kw.get("relu", False)
         got = B.bn_act_backward_reference(
-            grad, x.detach(), p, dtype, kw.get("alpha"), "shortcut" in kw,
-            kw.get("shortcut_bn"))
+            grad, (out if relu else x).detach(), p, dtype, kw.get("alpha"),
+            "shortcut" in kw, kw.get("shortcut_bn"), relu)
         assert (got[1] is None) == ("shortcut" not in kw)
+        if relu:  # the mask zeroes some gradients and passes the NaN's
+            assert bool((got[0] == 0).any() & (got[0] != 0).any())
         for g_, w_ in zip(got, want):
             assert g_.dtype == w_.dtype == dtype
-            assert torch.equal(g_, w_)
+            # The PReLU's where and autograd's sum of its two branches
+            # may differ in the sign of a zero (see the docstring).
+            assert (torch.equal(g_, w_) if mode == "bn_prelu"
+                    else _same(g_, w_))
 
 
 def test_backward_kernel_entry_refuses_a_cpu_tensor():
@@ -318,3 +477,24 @@ def test_r100_forward_makes_149_calls(monkeypatch):
         m(torch.zeros((1, 16, 16, 3)))
     assert len(m.units) == 49
     assert len(calls) == 149
+
+
+def test_vggface_forward_makes_10_calls(monkeypatch):
+    """The stem's one and three a strided block: the launches
+    ``launches.bn_act`` counts for a VGGFace-ResNet50 forward on the card
+    (10 a ``featurize`` call in the loop cells)."""
+    import alink_tpu_torch.models.resnet as R
+
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs.get("shortcut") is not None)
+        return B.bn_act(*args, **kwargs)
+
+    monkeypatch.setattr(R, "bn_act", counting)
+    m = VGGFaceResNet50(generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        m(torch.zeros((1, 32, 32, 3)))
+    assert len(m.blocks) == 16
+    assert len(calls) == 10
+    assert sum(calls) == 3

@@ -77,6 +77,9 @@ _SIGNATURES = {
     # q, k, v, out, n, h, t, d, strides (elements) of q, k, v along n, h,
     # t, scale, grid, stream
     "alink_attention": ("launches.attn", [_P] * 4 + [_I] * 13 + [_F, _I, _P]),
+    # qkv, table, out, n, s, h, window, shift, group, scale, stream
+    "alink_window_attention": ("launches.wattn", [_P] * 3 + [_I] * 6
+                               + [_F, _P]),
     # boxes, valid, mask scratch, keep, n, k, threshold, stream (the mask
     # and the sweep kernels, one launch counted)
     "alink_nms": ("launches.nms", [_P] * 4 + [_I, _I, _F, _P]),

@@ -426,3 +426,323 @@ extern "C" int alink_attention(const void* q, const void* k, const void* v,
                                  : by_width<16>(p, grid, st);
   return static_cast<int>(e);
 }
+
+// ---------------------------------------------------------------------------
+// The windowed core of the Swin face embedder (models/swin.py): for every
+// 7 x 7 window and head of a block, in one launch,
+//   softmax(q k^T 32^-1/2 + B + M) v,
+// with B the head's learned relative position bias, B[i, j] =
+// table[(dy + 6) 13 + (dx + 6), h] for the offset (dy, dx) of token i from
+// token j inside the window, and M the shifted blocks' -100 between tokens
+// whose regions of the shifted frame differ (Swin, arXiv:2103.14030).
+//
+// Replaces no TPU kernel: the JAX package has no Swin.  It takes the place
+// of the published sequence a block: torch.roll, the window partition copy,
+// two batched products with a float32 score tensor (49 x 49 a window and
+// head: 1.9 GB at stage 1 and 1,024 chips), the bias gather and add, the
+// mask add, the softmax, the reverse partition and the reverse roll.
+//
+// Arithmetic, as Swin runs under autocast with bf16 for fp16: q, k and v are
+// the qkv product's bf16 outputs; S = q k^T on bf16 tensor cores with
+// float32 sums (exact products), then s = S * scale + B (+ M) in float32,
+// e = exp(s - max), P = e * (1 / sum e) in float32; P enters P v rounded to
+// bf16, as autocast's matmul takes it, with float32 sums; the output is
+// rounded to bf16, the dtype proj takes.
+//
+// Bound: memory.  A block of the model reads q, k and v (6 C bytes a
+// token) and writes the output (2 C bytes a token) against 4 x 49 x C
+// operations a token: 49 operations a byte, far under the card's 295.
+// What the design does about that:
+//   - the shift and the window partition are folded into the addressing:
+//     a thread block takes one window of one image and a group of up to
+//     four heads, and copies each token's q, k and v rows for those heads
+//     (64 contiguous bytes a head and part) from wherever the qkv product
+//     left them in grid order, by 16-byte cp.async copies, into rows of 80
+//     bytes (32 bf16 + 8 padding: the eight rows of an ldmatrix phase on
+//     distinct banks); the output goes back through shared memory, the
+//     reverse shift folded into the stores, 64 contiguous bytes a head;
+//   - no score tensor: a warp owns 16 query rows of a head; S (16 x 64)
+//     stays in registers, the bias and the mask are added there (the bias
+//     column of the group's heads in shared memory, its index and the
+//     regions from the tokens' coordinates), and the accumulator layout of
+//     two n8 tiles is the A operand of the next m16n8k16 product, so P
+//     never leaves registers;
+//   - the window's 49 tokens pad to 64 rows (4 warp tiles); rows past 49
+//     are zero in shared memory and their keys are set to -inf;
+//   - 4 warps a block and 46-63 KB of shared memory, so 3-4 blocks an SM
+//     keep ~110 KB of copies in flight while other blocks compute.
+// chip_smoke.py phase s holds it to the plain float32 roll-partition path
+// and times it against this bound; PERF.md's kernel table keeps the
+// figures.
+
+namespace {
+
+constexpr int kWinWarps = 4;
+constexpr int kWinThreads = 32 * kWinWarps;
+constexpr int kWinRows = 64;          // 4 warp tiles of 16 rows
+constexpr int kWinHead = 32;          // a head's width
+constexpr int kWinPitch = 80;         // bytes: 32 bf16 + 8 padding a row
+constexpr int kWinTile = kWinRows * kWinPitch;
+constexpr int kWinMaxGroup = 4;
+
+struct WinParams {
+  const __nv_bfloat16* qkv;  // (N, S, S, 3, H, 32) bf16
+  const float* table;        // ((2W - 1)^2, H) float32
+  __nv_bfloat16* out;        // (N, S, S, H * 32) bf16
+  int s, shift, h, group, groups, side;  // side: windows along an axis
+  float scale;
+};
+
+// The region of a shifted-frame row or column inside its window's axis
+// (0, S - W), (S - W, S - shift), (S - shift, S): only the last window
+// along an axis holds more than one.
+template <int W>
+__device__ __forceinline__ int region(int win, int local, const WinParams& p) {
+  return win < p.side - 1 ? 0 : (local < W - p.shift ? 1 : 2);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWinThreads)
+    window_attention_kernel(const WinParams p) {
+  constexpr int T = W * W;
+  constexpr int R = 2 * W - 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int b = blockIdx.x;
+  const int grp = b % p.groups;
+  b /= p.groups;
+  const int wx = b % p.side;
+  b /= p.side;
+  const int wy = b % p.side;
+  const long long n = b / p.side;
+  const int h0 = grp * p.group;
+  const int width = p.h * kWinHead;        // C
+  const uint32_t base = smem_u32(smem);
+  // Tiles [part][head of the group], then the group's bias columns.
+  float* bias = reinterpret_cast<float*>(smem + 3 * p.group * kWinTile);
+
+  // Copies: per token, per part (q, k, v), per head, four 16-byte chunks;
+  // consecutive threads take consecutive chunks of a token's part.
+  const int per_token = 3 * p.group * 4;
+  for (int k = tid; k < T * per_token; k += kWinThreads) {
+    const int i = k / per_token;
+    const int rest = k - i * per_token;
+    const int part = rest / (4 * p.group);
+    const int hc = rest - part * 4 * p.group;   // head * 4 + chunk
+    const int ly = i / W, lx = i - ly * W;
+    int y = wy * W + ly + p.shift, x = wx * W + lx + p.shift;
+    if (y >= p.s) y -= p.s;
+    if (x >= p.s) x -= p.s;
+    const __nv_bfloat16* src =
+        p.qkv + ((n * p.s + y) * p.s + x) * 3 * width + part * width +
+        h0 * kWinHead + hc * 8;
+    cp_async16(base + (part * p.group + (hc >> 2)) * kWinTile +
+                   i * kWinPitch + (hc & 3) * 16,
+               src);
+  }
+  cp_async_commit();
+  // Rows past T stay zero: their keys are masked, their values meet P = 0.
+  constexpr int kPad = (kWinRows - T) * kWinPitch / 16;
+  for (int k = tid; k < 3 * p.group * kPad; k += kWinThreads) {
+    const int tile = k / kPad;
+    *reinterpret_cast<uint4*>(smem + tile * kWinTile + T * kWinPitch +
+                              (k - tile * kPad) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int k = tid; k < p.group * R * R; k += kWinThreads) {
+    const int hh = k / (R * R), r = k - hh * R * R;
+    bias[k] = p.table[r * p.h + h0 + hh];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int rt = warp;                      // query rows 16 rt .. 16 rt + 15
+  if (rt * 16 < T) {
+    const int g = lane >> 2, c = lane & 3;
+    // Rows past T compute on row T - 1's coordinates; they are dropped.
+    const int i0 = min(rt * 16 + g, T - 1), i1 = min(rt * 16 + g + 8, T - 1);
+    // The bias index is a(i) - b(j): a(i) = R yi + xi + (W - 1)(R + 1),
+    // b(j) = R yj + xj.
+    const int a0 = R * (i0 / W) + i0 % W + (W - 1) * (R + 1);
+    const int a1 = R * (i1 / W) + i1 % W + (W - 1) * (R + 1);
+    const bool masked = p.shift > 0;
+    const int l0 = 3 * region<W>(wy, i0 / W, p) + region<W>(wx, i0 % W, p);
+    const int l1 = 3 * region<W>(wy, i1 / W, p) + region<W>(wx, i1 % W, p);
+    for (int hh = 0; hh < p.group; ++hh) {
+      const uint32_t qs = base + hh * kWinTile;
+      const uint32_t ks = base + (p.group + hh) * kWinTile;
+      const uint32_t vs = base + (2 * p.group + hh) * kWinTile;
+      const float* bh = bias + hh * R * R;
+
+      float s[8][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(qs + (rt * 16 + (lane & 15)) * kWinPitch + kk * 32 +
+                    (lane >> 4) * 16,
+                a);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bk[4];
+          ldsm_x4(ks + (j * 16 + (lane >> 4) * 8 + (lane & 7)) * kWinPitch +
+                      kk * 32 + ((lane >> 3) & 1) * 16,
+                  bk);
+          mma_bf16(s[2 * j], a, bk);
+          mma_bf16(s[2 * j + 1], a, bk + 2);
+        }
+      }
+
+      // s = S * scale + B (+ M), keys past T at -inf; then the softmax
+      // over the row, its max and sum across the quad that holds it.
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = t * 8 + 2 * c + (e & 1);
+          if (j >= T) {
+            s[t][e] = -INFINITY;
+          } else {
+            const int yj = j / W, xj = j - (j / W) * W;
+            float v = __fadd_rn(__fmul_rn(s[t][e], p.scale),
+                                bh[(e < 2 ? a0 : a1) - (R * yj + xj)]);
+            if (masked && (e < 2 ? l0 : l1) !=
+                              3 * region<W>(wy, yj, p) + region<W>(wx, xj, p)) {
+              v = __fadd_rn(v, -100.f);
+            }
+            s[t][e] = v;
+          }
+        }
+      }
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        m0 = fmaxf(m0, fmaxf(s[t][0], s[t][1]));
+        m1 = fmaxf(m1, fmaxf(s[t][2], s[t][3]));
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+      }
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        s[t][0] = exp2f(__fmul_rn(__fsub_rn(s[t][0], m0), kLog2e));
+        s[t][1] = exp2f(__fmul_rn(__fsub_rn(s[t][1], m0), kLog2e));
+        s[t][2] = exp2f(__fmul_rn(__fsub_rn(s[t][2], m1), kLog2e));
+        s[t][3] = exp2f(__fmul_rn(__fsub_rn(s[t][3], m1), kLog2e));
+        sum0 += s[t][0] + s[t][1];
+        sum1 += s[t][2] + s[t][3];
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+      }
+      const float r0 = __frcp_rn(sum0), r1 = __frcp_rn(sum1);
+
+      // P v: per 16 keys, the bf16 probabilities of n8 tiles 2j and 2j + 1
+      // are the A fragment; v's B fragments by ldmatrix.trans.
+      float acc[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          // Fragment word f: tile 2j + f / 2, row g (f even) or g + 8.
+          const float* e = s[2 * j + f / 2] + 2 * (f & 1);
+          const float r = f & 1 ? r1 : r0;
+          pa[f] = bits(__floats2bfloat162_rn(__fmul_rn(e[0], r),
+                                             __fmul_rn(e[1], r)));
+        }
+#pragma unroll
+        for (int nd = 0; nd < 2; ++nd) {
+          uint32_t bv[4];
+          ldsm_x4_trans(vs + (j * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                 kWinPitch +
+                            nd * 32 + (lane >> 4) * 16,
+                        bv);
+          mma_bf16(acc[2 * nd], pa, bv);
+          mma_bf16(acc[2 * nd + 1], pa, bv + 2);
+        }
+      }
+
+      // The output in bf16 over this warp's own q rows (read only by it).
+      __syncwarp();
+      unsigned char* o0 = smem + hh * kWinTile + (rt * 16 + g) * kWinPitch;
+      unsigned char* o1 = o0 + 8 * kWinPitch;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        *reinterpret_cast<__nv_bfloat162*>(o0 + (t * 8 + 2 * c) * 2) =
+            __floats2bfloat162_rn(acc[t][0], acc[t][1]);
+        *reinterpret_cast<__nv_bfloat162*>(o1 + (t * 8 + 2 * c) * 2) =
+            __floats2bfloat162_rn(acc[t][2], acc[t][3]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // Stores: each token's heads of the group back to its grid position.
+  const int out_token = p.group * 4;
+  for (int k = tid; k < T * out_token; k += kWinThreads) {
+    const int i = k / out_token;
+    const int hc = k - i * out_token;
+    const int ly = i / W, lx = i - ly * W;
+    int y = wy * W + ly + p.shift, x = wx * W + lx + p.shift;
+    if (y >= p.s) y -= p.s;
+    if (x >= p.s) x -= p.s;
+    *reinterpret_cast<uint4*>(p.out + ((n * p.s + y) * p.s + x) * width +
+                              h0 * kWinHead + hc * 8) =
+        *reinterpret_cast<const uint4*>(smem + (hc >> 2) * kWinTile +
+                                        i * kWinPitch + (hc & 3) * 16);
+  }
+}
+
+}  // namespace
+
+// qkv: bf16 (N, S, S, 3 * H * 32), contiguous (the qkv Linear's output in
+// grid order, each token's row (3, H, 32)); table: float32 ((2W - 1)^2, H),
+// contiguous; out: bf16 (N, S, S, H * 32), contiguous.  W 7, S a multiple
+// of W, 0 <= shift < W, group (heads a thread block) 1 to 4 dividing H;
+// qkv and out 16-byte aligned.
+extern "C" int alink_window_attention(const void* qkv, const void* table,
+                                      void* out, int n, int s, int h,
+                                      int window, int shift, int group,
+                                      float scale, void* stream) {
+  const long long blocks =
+      static_cast<long long>(n) * (s / 7) * (s / 7) * (group > 0 ? h / group : 0);
+  const bool bad =
+      !qkv || !table || !out || n < 0 || window != 7 || s < 7 || s % 7 ||
+      shift < 0 || shift >= window || h < 1 || group < 1 ||
+      group > kWinMaxGroup || h % group ||
+      reinterpret_cast<uintptr_t>(qkv) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(table) % 4 || blocks >= (1LL << 31);
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  WinParams p;
+  p.qkv = static_cast<const __nv_bfloat16*>(qkv);
+  p.table = static_cast<const float*>(table);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.s = s;
+  p.shift = shift;
+  p.h = h;
+  p.group = group;
+  p.groups = h / group;
+  p.side = s / 7;
+  p.scale = scale;
+  const int smem = 3 * group * kWinTile + group * 13 * 13 * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      window_attention_kernel<7>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  window_attention_kernel<7><<<static_cast<unsigned>(blocks), kWinThreads,
+                               smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -29,7 +29,7 @@ class FaceModel:
     """Batched detect -> align -> embed pipeline.
 
     Args:
-        embedder: an embedder module, ArcFace or the ViT
+        embedder: an embedder module, ArcFace, the ViT or the Swin
             (``(N, 112, 112, 3) -> (N, D)``).
         cascade_params: MTCNN towers, or None to skip detection (images are
             then pre-cropped faces, resized to ``cfg.output_size``) unless a
@@ -111,8 +111,11 @@ class FaceModel:
 
     @torch.no_grad()
     def get_feature(self, aligned) -> torch.Tensor:
-        """Embeddings of aligned chips."""
-        return self.embedder(self._to_device(aligned))
+        """Embeddings of aligned chips.  Span ``embed``; counter
+        ``embed.calls``."""
+        with span("embed"):
+            count("embed.calls")
+            return self.embedder(self._to_device(aligned))
 
     def process(self, images) -> torch.Tensor:
         """End to end: raw images -> embeddings (zero chip where no face)."""

@@ -14,6 +14,7 @@ from alink_tpu_torch.models.resnet import (ResNet50V15, SENet50, VGGFace16,
                                            VGGFaceResNet50)
 from alink_tpu_torch.models.retinaface import RetinaFaceR50
 from alink_tpu_torch.models.siamese import SiameseHead, SmallRes, SmallResTower
+from alink_tpu_torch.models.swin import FaceSwin, FaceSwin_S
 from alink_tpu_torch.models.vit import FaceViT, FaceViT_L
 
 __all__ = ["preprocess", "ArcFaceResNet34", "ArcFaceResNet50",
@@ -22,4 +23,4 @@ __all__ = ["preprocess", "ArcFaceResNet34", "ArcFaceResNet50",
            "GenderAgeResNet50", "decode_ga", "LNet", "ONet", "PNet", "RNet",
            "SENet50", "VGGFace16", "SiameseHead", "SmallRes", "SmallResTower",
            "VGGFaceResNet50", "FaceViT", "FaceViT_L", "ResNet50V15",
-           "RetinaFaceR50"]
+           "RetinaFaceR50", "FaceSwin", "FaceSwin_S"]

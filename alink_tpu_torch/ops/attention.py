@@ -1,4 +1,7 @@
-"""The ViT's attention core, softmax(q k^T d^-1/2) v with the heads merged,
+"""The transformers' attention cores: the ViT's full core and the Swin
+embedder's windowed core.
+
+The ViT's core is softmax(q k^T d^-1/2) v with the heads merged,
 float32-accurate from bf16 q, k and v.
 
 ``attention_core_reference`` is the plain version, the published
@@ -16,6 +19,21 @@ fallback on the card.
 Where a gradient is wanted the call is an autograd function whose
 backward recomputes the reference in float32 from the saved q, k and v
 and differentiates it (the ViT teacher's FGSM path).
+
+The windowed core (``window_attention``, Swin, arXiv:2103.14030) attends
+inside W x W windows of a grid of tokens with a learned relative position
+bias per head and, on shifted blocks, the grid cyclically shifted and a
+-100 mask between the shifted frame's regions.
+``window_attention_reference`` is the published sequence in float32: roll,
+window partition, q k^T, the bias and the mask, softmax, P v, reverse
+partition, roll back.  On CUDA tensors one launch of
+``csrc/attention.cu``'s ``alink_window_attention`` reads the qkv product's
+bf16 output in grid order (the shift and the partition folded into its
+loads), adds the bias and the mask in float32 and writes the merged heads
+in bf16 in grid order (the reverse folded into its stores), through the
+op ``alink_tpu_torch::window_attention``; it takes W 7 and heads of 32 and
+raises on anything else.  It has no backward: the Swin embedder serves
+inference only.
 """
 
 from __future__ import annotations
@@ -151,3 +169,169 @@ def attention_core(q: torch.Tensor, k: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Core.apply(q, k, v)
     return _forward(q, k, v)
+
+
+# -- the windowed core -----------------------------------------------------
+
+WINDOW = 7
+WINDOW_HEAD = 32
+WINDOW_GROUP = 4          # heads a thread block of the kernel takes, at most
+
+
+def relative_position_index(window: int) -> torch.Tensor:
+    """(W^2, W^2) int64: the row of the bias table for query i and key j,
+    as the published code builds it, (dy + W - 1)(2W - 1) + (dx + W - 1)
+    for (dy, dx) = position of i - position of j."""
+    ys, xs = torch.meshgrid(torch.arange(window), torch.arange(window),
+                            indexing="ij")
+    coords = torch.stack((ys, xs)).flatten(1)                  # 2, T
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0)
+    rel = rel + (window - 1)
+    return rel[..., 0] * (2 * window - 1) + rel[..., 1]
+
+
+def shift_mask(size: int, window: int, shift: int) -> torch.Tensor:
+    """(windows, W^2, W^2) float32: -100 between tokens of a window whose
+    regions of the shifted frame differ, else 0 (the published
+    ``attn_mask``: each axis cut at S - W and S - shift)."""
+    img = torch.zeros(size, size)
+    cuts = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
+    label = 0
+    for hs in cuts:
+        for ws in cuts:
+            img[hs, ws] = label
+            label += 1
+    side = size // window
+    win = img.reshape(side, window, side, window).permute(0, 2, 1, 3)
+    win = win.reshape(-1, window * window)
+    diff = win[:, None, :] - win[:, :, None]
+    return torch.where(diff != 0, -100.0, 0.0)
+
+
+def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                               shift: int, window: int) -> torch.Tensor:
+    """(N, S, S, 3 H d) qkv in grid order (each token's row (3, H, d)) and
+    the ((2W - 1)^2, H) bias table -> (N, S, S, H d) float32: the
+    published roll, window partition, softmax((q d^-1/2) k^T + B + M) v,
+    reverse partition and roll back, in float32 on the upcasts."""
+    n, s, _, c3 = qkv.shape
+    h = bias.shape[1]
+    d = c3 // (3 * h)
+    t, side = window * window, s // window
+    x = qkv.float()
+    if shift:
+        x = torch.roll(x, (-shift, -shift), (1, 2))
+    x = x.reshape(n, side, window, side, window, 3, h, d).permute(
+        5, 0, 1, 3, 6, 2, 4, 7).reshape(3, n, side * side, h, t, d)
+    q, k, v = x[0] * d ** -0.5, x[1], x[2]
+    a = q @ k.transpose(-2, -1)
+    index = relative_position_index(window).to(bias.device)
+    a = a + bias.float()[index.reshape(-1)].reshape(t, t, h).permute(2, 0, 1)
+    if shift:
+        a = a + shift_mask(s, window, shift).to(a.device)[None, :, None]
+    o = torch.softmax(a, dim=-1) @ v
+    o = o.reshape(n, side, side, h, window, window, d).permute(
+        0, 1, 4, 2, 5, 3, 6).reshape(n, s, s, h * d)
+    if shift:
+        o = torch.roll(o, (shift, shift), (1, 2))
+    return o
+
+
+def window_group(heads: int) -> int:
+    """The heads a thread block of the kernel takes: the largest divisor
+    of ``heads`` up to 4."""
+    return max(g for g in range(1, WINDOW_GROUP + 1) if heads % g == 0)
+
+
+def check_window_inputs(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
+                        window: int) -> None:
+    """Raise unless the kernel takes these: bf16 (N, S, S, 3 H 32) qkv,
+    contiguous, S a multiple of W = 7, 0 <= shift < W, a float32
+    contiguous (169, H) table on the same device.  Reads no data."""
+    if qkv.dim() != 4 or qkv.shape[1] != qkv.shape[2]:
+        raise ValueError(f"window attention: qkv must be (N, S, S, 3C), got "
+                         f"{tuple(qkv.shape)}")
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"window attention kernel takes bf16 qkv, not "
+                        f"{qkv.dtype}")
+    if window != WINDOW:
+        raise ValueError(f"window attention kernel takes window {WINDOW}, "
+                         f"got {window}")
+    n, s, _, c3 = qkv.shape
+    if s % window or not 0 <= shift < window:
+        raise ValueError(f"window attention kernel: grid {s} must be a "
+                         f"multiple of {window} and 0 <= shift < {window}, "
+                         f"got shift {shift}")
+    if bias.dim() != 2 or bias.shape[0] != (2 * window - 1) ** 2:
+        raise ValueError(f"window attention: bias table must be "
+                         f"({(2 * window - 1) ** 2}, H), got "
+                         f"{tuple(bias.shape)}")
+    h = bias.shape[1]
+    if c3 != 3 * h * WINDOW_HEAD:
+        raise ValueError(f"window attention kernel takes heads of "
+                         f"{WINDOW_HEAD}: qkv width {c3} is not 3 x {h} x "
+                         f"{WINDOW_HEAD}")
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        raise TypeError("window attention kernel takes a contiguous float32 "
+                        "bias table")
+    if not qkv.is_contiguous():
+        raise ValueError("window attention kernel takes a contiguous qkv")
+    if qkv.device != bias.device:
+        raise ValueError("window attention: qkv and the bias table on "
+                         "different devices")
+    if n * (s // window) ** 2 * (h // window_group(h)) >= 2 ** 31:
+        raise ValueError(f"window attention kernel: too many windows "
+                         f"({n} x {(s // window) ** 2})")
+
+
+def _window_launch(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
+                   window: int) -> torch.Tensor:
+    """The CUDA implementation of ``alink_tpu_torch::window_attention``:
+    allocate the bf16 output, launch ``alink_window_attention`` on the
+    current stream."""
+    n, s, _, c3 = qkv.shape
+    h = bias.shape[1]
+    out = torch.empty((n, s, s, c3 // 3), dtype=torch.bfloat16,
+                      device=qkv.device)
+    if n:
+        _build.launch("alink_window_attention", qkv.device, qkv.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), n, s, h, window, shift,
+                      window_group(h), WINDOW_HEAD ** -0.5)
+    return out
+
+
+_OPS.define("window_attention(Tensor qkv, Tensor bias, int shift, "
+            "int window) -> Tensor")
+_OPS.impl("window_attention", _window_launch, "CUDA")
+
+
+def window_attention_kernel(qkv: torch.Tensor, bias: torch.Tensor,
+                            shift: int, window: int) -> torch.Tensor:
+    """One launch of the windowed core on CUDA tensors as
+    ``check_window_inputs`` describes -> (N, S, S, H 32) bf16, through the
+    op ``torch.ops.alink_tpu_torch.window_attention``.  Raises on
+    anything else."""
+    check_window_inputs(qkv, bias, shift, window)
+    if not qkv.is_cuda:
+        raise ValueError(f"window_attention_kernel needs CUDA tensors, got "
+                         f"{qkv.device}")
+    if qkv.data_ptr() % 16:
+        raise ValueError("window attention kernel: qkv must start on a "
+                         "16-byte boundary")
+    return torch.ops.alink_tpu_torch.window_attention(qkv, bias, shift,
+                                                      window)
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
+                     window: int) -> torch.Tensor:
+    """The windowed core, (N, S, S, 3 H d) qkv and the ((2W - 1)^2, H)
+    table -> (N, S, S, H d): the kernel (bf16 out) on CUDA tensors, the
+    plain float32 version on CPU ones."""
+    if qkv.is_cuda:
+        if torch.is_grad_enabled() and (qkv.requires_grad
+                                        or bias.requires_grad):
+            raise RuntimeError("window attention kernel has no backward")
+        return window_attention_kernel(qkv, bias, shift, window)
+    if qkv.device.type != "cpu":
+        raise ValueError(f"no window attention for device {qkv.device}")
+    return window_attention_reference(qkv, bias, shift, window)

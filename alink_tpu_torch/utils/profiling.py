@@ -70,7 +70,8 @@ def counters() -> dict[str, int]:
     """A snapshot of every counter (those kept on a device read now, which
     waits for it), with the kernel library's launch counts
     (``launches.k1`` to ``launches.k4``, ``launches.bn_act``,
-    ``launches.bn_act_backward``, ``launches.attn``, ``launches.nms``;
+    ``launches.bn_act_backward``, ``launches.attn``,
+    ``launches.wattn``, ``launches.nms``;
     ``_build``)."""
     out = dict(_COUNTS)
     for (name, _), total in _ON_DEVICE.items():

@@ -253,6 +253,17 @@ r. RetinaFace-R50's detector: the NMS kernel (``csrc/nms.cu``) against
    batch 256 (forward and detector call, TFLOP/s) and
    ``FaceModel(r100, detector=...)`` faces/s, with its launches a call
    (K3 13, NMS 1).
+s. The Swin embedder's windowed core (``ops.attention.window_attention``,
+   ``csrc/attention.cu``'s ``alink_window_attention``) against the plain
+   float32 roll-partition path at Swin-S's four stage shapes, shifted and
+   not, at batch 1,024 (stages 1 and 3) and on ragged head counts, the gap
+   over the widest |reference| under ``wattn_gap``'s limit; stages 1 and
+   3 timed beside their bytes bound, the plain float32 path and the same
+   path under bf16 autocast (the published sequence's, a yardstick); a
+   ``FaceSwin_S`` forward through ``FaceModel.get_feature`` with 24
+   ``launches.wattn``, nothing but the core's kernel inside the
+   ``alink/swin.attn`` spans of its trace, its embeddings against the
+   plain core's and its chips a second at batch 1,024.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -4557,6 +4568,210 @@ def phase_retina(dev, smi: str) -> tuple[dict, dict]:
             "bn_act": made["launches.bn_act"]}, nms_numbers
 
 
+# Phase (s): the Swin embedder's windowed attention core.  Shapes (chips,
+# grid, heads, shift) of Swin-S's stages at 112^2 and patch 2.
+S_BATCH = 1024
+S_STAGES = ((S_BATCH, 56, 3, 3), (S_BATCH, 56, 3, 0), (S_BATCH, 28, 6, 3),
+            (S_BATCH, 14, 12, 3), (S_BATCH, 14, 12, 0), (S_BATCH, 7, 24, 0))
+S_RAGGED = ((3, 21, 5, 3), (5, 14, 2, 3), (2, 7, 4, 0), (1, 35, 8, 3))
+S_TIMED = ((S_BATCH, 56, 3, 3), (S_BATCH, 14, 12, 3))
+S_DEPTH = 24
+S_FORWARD = 64           # chips of the held forward
+
+
+def _swin_qkv(n, side, heads, g):
+    """(N, S, S, 3 H 32) bf16 and a (169, H) float32 table of the
+    published scale from a generator on the card."""
+    qkv = torch.randn((n, side, side, 3 * heads * 32), generator=g,
+                      device=g.device).to(torch.bfloat16)
+    table = torch.randn((169, heads), generator=g, device=g.device) * 0.02
+    return qkv, table
+
+
+def _wattn_gap(qkv, table, shift, got, block: int = 128
+               ) -> tuple[float, float]:
+    """(widest |kernel - plain| over widest |plain|, widest |kernel -
+    plain|), the plain float32 path in blocks of chips."""
+    from alink_tpu_torch.ops import attention as A
+
+    gap = top = 0.0
+    for i in range(0, qkv.shape[0], block):
+        want = A.window_attention_reference(qkv[i:i + block], table, shift, 7)
+        gap = max(gap, maxdiff(got[i:i + block].float(), want))
+        top = max(top, float(want.abs().max()))
+    return gap / top, gap
+
+
+def phase_swin(dev, smi: str) -> tuple[int, dict]:
+    """(s) the windowed core against the plain path at Swin-S's shapes,
+    timed beside its bound; a ``FaceSwin_S`` forward: launches, the trace
+    inside ``alink/swin.attn``, embeddings, chips a second."""
+    import alink_tpu_torch.models.swin as swin
+    from alink_tpu_torch import _build
+    from alink_tpu_torch.detect import FaceModel
+    from alink_tpu_torch.models import FaceSwin_S
+    from alink_tpu_torch.ops import attention as A
+    from alink_tpu_torch.utils import profiling
+    from bench_torch.roofline_swin import (wattn_bound_per_forward_s,
+                                           wattn_bound_s, wattn_bytes)
+
+    t_phase = time.perf_counter()
+    limits = json.loads((Path(__file__).resolve().parent / "bench_torch" /
+                         "configs" / "swin_s_face112.json").read_text()
+                        )["limits"]
+    limit = limits["wattn_gap"]
+    _build.load()
+    for line in _ptxas("window_attention_kernel"):
+        print(f"window attention ptxas: {line}", flush=True)
+    gd = torch.Generator(device=dev).manual_seed(SEED + 19)
+    err = 0.0
+    for n, side, heads, shift in S_STAGES + S_RAGGED:
+        qkv, table = _swin_qkv(n, side, heads, gd)
+        got = A.window_attention_kernel(qkv, table, shift, 7)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and got.is_contiguous() and
+              got.shape == (n, side, side, heads * 32),
+              f"window attention {(n, side, heads, shift)}: output "
+              f"{got.dtype} {tuple(got.shape)}")
+        gap, diff = _wattn_gap(qkv, table, shift, got)
+        err = max(err, diff)
+        check(gap <= limit, f"window attention {(n, side, heads, shift)}: "
+              f"gap {gap:.3e} over the widest |reference| (limit {limit:g})")
+        print(f"window attention (chips, grid, heads, shift) "
+              f"{(n, side, heads, shift)}: gap {gap:.3e} of the widest "
+              f"|reference|", flush=True)
+        del qkv, table, got
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for n, side, heads, shift in S_TIMED:
+        qkv, table = _swin_qkv(n, side, heads, gd)
+        kernel = lambda: A.window_attention_kernel(  # noqa: E731
+            qkv, table, shift, 7)
+        ms, call = kernel_ms(kernel, "launches.wattn")
+        cold = _cold_ms(kernel)
+        plain = cuda_ms(lambda: A.window_attention_reference(
+            qkv, table, shift, 7), iters=3, warmup=1)
+
+        def autocast_path():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return A.window_attention_reference(qkv, table, shift, 7)
+
+        lib = cuda_ms(autocast_path, iters=3, warmup=1)
+        c = heads * 32
+        bound = wattn_bound_s(n, side, c) * 1e3
+        nbytes = n * wattn_bytes(side * side, c)
+        print(f"window attention {(n, side, heads, shift)}: kernel {ms:.4f} "
+              f"ms (L2 flushed {cold:.4f}, per call from Python "
+              f"{call:.4f}), bytes bound {bound:.4f} ({100 * bound / ms:.1f} "
+              f"% of it, {nbytes / ms / 1e6:.0f} GB/s of "
+              f"{nbytes / 1e6:.1f} MB), plain float32 path {plain:.4f} ms, "
+              f"the published sequence under bf16 autocast {lib:.4f} ms "
+              f"(per call from Python) on {smi}", flush=True)
+        timed[(side, shift)] = (ms, call, plain, bound, lib)
+        del qkv, table
+        torch.cuda.empty_cache()
+    ms, call, plain, bound, lib = timed[(56, 3)]
+    check(ms < plain, f"window attention: kernel {ms:.4f} ms not faster "
+          f"than the plain path {plain:.4f} ms at stage 1")
+
+    g = torch.Generator().manual_seed(SEED + 19)
+    model = FaceSwin_S(generator=g, device=dev).eval()
+    fm = FaceModel(model)
+    chips = (torch.rand((S_BATCH, 112, 112, 3), generator=g) * 255).to(dev)
+    real = swin.window_attention
+
+    @contextlib.contextmanager
+    def core(fn):
+        swin.window_attention = fn
+        try:
+            yield
+        finally:
+            swin.window_attention = real
+
+    seen = {}
+
+    def keep(module, args, out):
+        seen["core"] = (args[0].detach().clone(), args[1].detach().clone(),
+                        module.shift, out.detach().clone())
+
+    hook = model.layers[0].blocks[1].attn.core.register_forward_hook(keep)
+    with counting() as made:
+        emb = fm.get_feature(chips[:S_FORWARD])
+    hook.remove()
+    check(made["launches.wattn"] == S_DEPTH and made["embed.calls"] == 1,
+          f"window attention: {made['launches.wattn']} launches in one "
+          f"Swin-S forward")
+    with core(A.window_attention_reference):
+        emb_plain = fm.get_feature(chips[:S_FORWARD])
+    qkv, table, shift, out = seen["core"]
+    check(shift == 3, "window attention: stage 1's block 1 does not shift")
+    block_gap = _wattn_gap(qkv, table, shift, out)[0]
+    embed_gap = float(torch.linalg.vector_norm(emb - emb_plain,
+                                               dim=1).max())
+    check(block_gap <= limit and bool(torch.isfinite(emb).all()) and
+          embed_gap <= limits["embed_gap"], f"window attention: Swin-S "
+          f"stage 1 block 1 "
+          f"gap {block_gap:.3e}, embeddings {embed_gap:.3e} from the plain "
+          f"core's")
+    print(f"window attention: Swin-S forward ({S_FORWARD} chips): stage 1 "
+          f"block 1 gap {block_gap:.3e} (wattn_gap's reading), unit "
+          f"embeddings {embed_gap:.3e} from the plain core's", flush=True)
+    del seen, qkv, table, out
+
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+        "swin"
+    with profiling.trace(str(log_dir)) as prof:
+        fm.get_feature(chips)
+        torch.cuda.synchronize()
+    launches = 2 * S_DEPTH            # the held forward's, the traced one's
+
+    def kernels(evt) -> list:
+        own = [k.name for k in getattr(evt, "kernels", ())]
+        return own + [x for c in evt.cpu_children for x in kernels(c)]
+
+    # The host's ranges (with CUDA traced, each range also has a device
+    # annotation of the same name).
+    spans = [e for e in prof.events()
+             if e.name == profiling.SPAN_PREFIX + "swin.attn"
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    inside = [x for e in spans for x in kernels(e)]
+    counted = json.loads((log_dir / "counters.json").read_text())
+    check(len(spans) == S_DEPTH and counted["launches.wattn"] == S_DEPTH and
+          len(inside) == S_DEPTH and
+          all("window_attention_kernel" in x for x in inside),
+          f"window attention: {len(spans)} swin.attn spans, kernels inside "
+          f"{sorted(set(inside))} ({len(inside)})")
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"window attention: one Swin-S forward ({S_BATCH}), {len(names)} "
+          f"kernels launched; inside the 24 alink/swin.attn spans only "
+          f"{len(inside)} window_attention_kernel launches; counters.json "
+          f"launches.wattn {counted['launches.wattn']}", flush=True)
+
+    def forward_ms(fn) -> float:
+        with core(fn):
+            return cuda_ms(lambda: fm.get_feature(chips), iters=5, warmup=2)
+
+    times = {real: [], A.window_attention_reference: []}
+    for fn in (real, A.window_attention_reference,
+               A.window_attention_reference, real):
+        times[fn].append(forward_ms(fn))
+    best = min(times[real])
+    bound_fwd = wattn_bound_per_forward_s(S_BATCH) * 1e3
+    print("window attention: Swin-S forward at batch {} ms (per call from "
+          "Python, in turns): kernel core {}, plain core {}; {:.0f} chips/s; "
+          "the cores' bytes bound {:.3f} ms a forward".format(
+              S_BATCH, [f"{x:.2f}" for x in times[real]],
+              [f"{x:.2f}" for x in times[A.window_attention_reference]],
+              S_BATCH / best * 1e3, bound_fwd), flush=True)
+    print(f"window attention: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, {"err": err, "ms": ms, "call_ms": call,
+                      "plain_ms": plain, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4644,6 +4859,10 @@ def main() -> int:
     retina_counts, numbers["nms"] = phase_retina(dev, smi)
     torch.cuda.empty_cache()
     stamp("r")
+    counts["window_attention"], numbers["window_attention"] = phase_swin(
+        dev, smi)
+    torch.cuda.empty_cache()
+    stamp("s")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
     # serving, the augmented loop and (k)'s profiles and L-Net chips for
@@ -4688,7 +4907,9 @@ def main() -> int:
                "attention": ("alink_tpu_torch/csrc/attention.cu",
                              "none: the JAX package has no ViT"),
                "nms": ("alink_tpu_torch/csrc/nms.cu",
-                       "none: alink_tpu/ops/nms.py is array arithmetic")}
+                       "none: alink_tpu/ops/nms.py is array arithmetic"),
+               "window_attention": ("alink_tpu_torch/csrc/attention.cu",
+                                    "none: the JAX package has no Swin")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],

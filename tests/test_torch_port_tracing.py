@@ -27,7 +27,8 @@ from alink_tpu_torch.utils import profiling as P
 
 PREFIX = P.SPAN_PREFIX
 LAUNCHES = ("launches.k1", "launches.k2", "launches.k3", "launches.k4",
-            "launches.bn_act", "launches.bn_act_backward", "launches.attn")
+            "launches.bn_act", "launches.bn_act_backward", "launches.attn",
+            "launches.wattn", "launches.nms")
 NOISE = ("gaussian", "saltpepper", "adversarial", "fgsm")
 
 

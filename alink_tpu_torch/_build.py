@@ -83,6 +83,9 @@ _SIGNATURES = {
     # boxes, valid, mask scratch, keep, n, k, threshold, stream (the mask
     # and the sweep kernels, one launch counted)
     "alink_nms": ("launches.nms", [_P] * 4 + [_I, _I, _F, _P]),
+    # in dtype, out dtype, x, gamma, beta, out, rows, c, eps, stream
+    "alink_layer_norm": ("launches.ln", [_I, _I] + [_P] * 4 + [_I, _I, _F,
+                                                                 _P]),
 }
 _LAUNCHES = {counter: 0 for counter, _ in _SIGNATURES.values()}
 

@@ -35,7 +35,12 @@ patch convolution and every Linear of the blocks and merges run in
 ``dtype`` (their weights held in it); the residual stream, every
 LayerNorm, the bias and mask additions and the softmax are float32; P
 enters P v in bf16 with float32 sums, as autocast's matmul takes it, and
-the core writes bf16; the final LN and the head are float32.
+the core writes bf16; the final LN and the head are float32.  Each LN is
+computed in float32 and written in the dtype its consumer takes: the bf16
+the next Linear reads (the 48 block norms and the 3 merge norms), float32
+for the patch norm and the final norm.  On the card that is one launch of
+``ops.layer_norm``'s kernel a norm (``launches.ln``, 53 a Swin-S forward),
+which rounds once at its store, where ``.to`` rounds on the CPU.
 
 The windowed core is ``ops.attention.window_attention``: on the card one
 launch of a hand-written kernel a block (``launches.wattn``), which reads
@@ -56,7 +61,8 @@ training-only and absent.  The kernel takes bf16 only: a float32 Swin runs
 its core on the CPU only.
 
 Spans ``swin.patch``, ``swin.attn`` (the windowed core alone, once a
-block), ``swin.mlp`` (once a block), ``swin.merge`` (3) and ``swin.head``;
+block), ``swin.mlp`` (once a block), ``swin.merge`` (3), ``swin.head`` and
+``ln`` (each LayerNorm, 53 a Swin-S forward);
 counters ``swin.forwards``, ``swin.tokens`` (chips x the tokens of the
 four grids, 4,165 at 112) and ``swin.windows`` (chips x the window
 attentions of a forward, 234 at 112).
@@ -145,8 +151,8 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, mlp_ratio * dim, dtype, generator, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x).to(self.dtype))
-        return x + self.mlp(self.norm2(x).to(self.dtype))
+        x = x + self.attn(self.norm1(x, self.dtype))
+        return x + self.mlp(self.norm2(x, self.dtype))
 
 
 class PatchMerging(nn.Module):
@@ -163,8 +169,8 @@ class PatchMerging(nn.Module):
         with span("swin.merge"):
             x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
                            x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-            dtype = self.reduction.weight.dtype
-            return self.reduction(self.norm(x).to(dtype)).float()
+            return self.reduction(self.norm(
+                x, self.reduction.weight.dtype)).float()
 
 
 class Stage(nn.Module):

@@ -26,7 +26,10 @@ the patch convolution and every Linear of the blocks run in ``dtype``
 stream, every LayerNorm and the attention core run in float32 (the core
 computes on the float32 values of q, k and v, as insightface does with
 autocast off); the final LN and the feature head run in float32, as
-ArcFace's fc1.  Drop path, dropout and random masking are training-only
+ArcFace's fc1.  Each block's two LNs write the bf16 their product takes
+in one pass (on the card one launch of ``ops.layer_norm``'s kernel a
+norm, ``launches.ln``, 49 a ViT-L forward), rounding once where ``.to``
+would.  Drop path, dropout and random masking are training-only
 and absent.
 
 The core is ``ops.attention.attention_core``: on the card one launch of a
@@ -48,7 +51,8 @@ maps insightface's names.  Tensor and pipeline parallelism
 
 Spans ``vit.patch``, ``vit.attn`` (the float32 core, once a block: one
 launch of the kernel on the card, ``launches.attn``),
-``vit.mlp`` (once a block) and ``vit.head``; counters ``vit.forwards``
+``vit.mlp`` (once a block), ``vit.head`` and ``ln`` (each LayerNorm,
+49 a ViT-L forward); counters ``vit.forwards``
 and ``vit.tokens`` (faces x tokens).
 """
 
@@ -61,6 +65,7 @@ from torch import nn
 from alink_tpu_torch.models.resnet import (MXNET_BN_EPS, _FrozenBN,
                                            _lecun_normal_)
 from alink_tpu_torch.ops.attention import attention_core
+from alink_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 from alink_tpu_torch.utils.profiling import count, span
 
 LN_EPS = 1e-6
@@ -76,7 +81,12 @@ def _linear(cin: int, cout: int, bias: bool, dtype, generator,
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, in float32 whatever the input."""
+    """LayerNorm over the last axis, computed in float32 whatever the
+    input and written in ``out_dtype`` (float32 unless the consumer takes
+    another), under span ``ln``.  With no gradient wanted, a CUDA input
+    takes one launch of ``ops.layer_norm``'s kernel (``launches.ln``);
+    where one is wanted, and on the CPU, it is ``F.layer_norm`` on the
+    float32 upcast, then ``.to(out_dtype)``."""
 
     def __init__(self, dim: int, eps: float = LN_EPS, device=None):
         super().__init__()
@@ -84,9 +94,16 @@ class LayerNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim, device=device))
         self.beta = nn.Parameter(torch.zeros(dim, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.gamma.shape, self.gamma,
-                            self.beta, self.eps)
+    def forward(self, x: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, self.gamma, self.beta))
+        with span("ln"):
+            if grad:
+                return layer_norm_reference(x, self.gamma, self.beta,
+                                            self.eps, out_dtype)
+            return layer_norm(x.contiguous(), self.gamma, self.beta,
+                              self.eps, out_dtype)
 
 
 class AttentionCore(nn.Module):
@@ -142,8 +159,8 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, hidden, dtype, generator, device)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        t = t + self.attn(self.norm1(t).to(self.dtype))
-        return t + self.mlp(self.norm2(t).to(self.dtype))
+        t = t + self.attn(self.norm1(t, self.dtype))
+        return t + self.mlp(self.norm2(t, self.dtype))
 
 
 class PatchEmbed(nn.Module):

@@ -71,7 +71,7 @@ def counters() -> dict[str, int]:
     waits for it), with the kernel library's launch counts
     (``launches.k1`` to ``launches.k4``, ``launches.bn_act``,
     ``launches.bn_act_backward``, ``launches.attn``,
-    ``launches.wattn``, ``launches.nms``;
+    ``launches.wattn``, ``launches.nms``, ``launches.ln``;
     ``_build``)."""
     out = dict(_COUNTS)
     for (name, _), total in _ON_DEVICE.items():

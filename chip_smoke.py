@@ -263,7 +263,18 @@ s. The Swin embedder's windowed core (``ops.attention.window_attention``,
    ``FaceSwin_S`` forward through ``FaceModel.get_feature`` with 24
    ``launches.wattn``, nothing but the core's kernel inside the
    ``alink/swin.attn`` spans of its trace, its embeddings against the
-   plain core's and its chips a second at batch 1,024.
+   plain core's and its chips a second at batch 1,024.  Then the
+   transformers' LayerNorm (``ops.layer_norm``, ``csrc/layer_norm.cu``)
+   against ``F.layer_norm`` + ``.to`` at each of a Swin-S forward's norm
+   shapes at 1,024 chips and at 49,007 rows of each width 96-1,536 with
+   float32 and bf16 in and out (bf16 out: >= 99.9 % bit-equal, every
+   element within one ulp; float32 out: within 1e-5 of the widest
+   |reference|); each shape timed beside its bytes bound and PyTorch's
+   sequence, summed over a forward's 53 norms; Swin-S and ViT-L forwards
+   with 53 and 49 ``launches.ln``, nothing but the norm kernel inside the
+   ``alink/ln`` spans and no cast after it in the Swin's trace, the
+   embeddings against the plain norms' and the Swin-S forward at 1,024
+   chips with each, in turns.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 device time ``ms`` and time per call from Python ``call_ms``, its bound
@@ -4772,6 +4783,233 @@ def phase_swin(dev, smi: str) -> tuple[int, dict]:
                       "bound_by": "bytes", "library_ms": lib}
 
 
+# Phase (s), LayerNorm: each distinct norm of a Swin-S forward at 112^2 and
+# 1,024 chips, (what, rows, width, input dtype, output dtype, norms of that
+# shape a forward), in the order they run.
+F32, BF16 = torch.float32, torch.bfloat16
+LN_SHAPES = (("patch", S_BATCH * 3136, 96, BF16, F32, 1),
+             ("stage 1", S_BATCH * 3136, 96, F32, BF16, 4),
+             ("merge 1", S_BATCH * 784, 384, F32, BF16, 1),
+             ("stage 2", S_BATCH * 784, 192, F32, BF16, 4),
+             ("merge 2", S_BATCH * 196, 768, F32, BF16, 1),
+             ("stage 3", S_BATCH * 196, 384, F32, BF16, 36),
+             ("merge 3", S_BATCH * 49, 1536, F32, BF16, 1),
+             ("stage 4", S_BATCH * 49, 768, F32, BF16, 4),
+             ("final", S_BATCH * 49, 768, F32, F32, 1))
+LN_WIDTHS = (96, 192, 384, 768, 1536)
+LN_RAGGED = 49 * 1000 + 7
+LN_NORMS = {"swin": 53, "vit": 49}
+
+
+def _ln_case(rows, c, in_dtype, g):
+    """Rows of the residual stream's kind: a per-row offset and scale on
+    normal noise, in ``in_dtype``; gamma and beta near their init."""
+    dev = g.device
+    x = (torch.randn((rows, c), generator=g, device=dev)
+         * (0.5 + torch.rand((rows, 1), generator=g, device=dev) * 4)
+         + torch.randn((rows, 1), generator=g, device=dev) * 3).to(in_dtype)
+    gamma = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    beta = 0.2 * torch.randn(c, generator=g, device=dev)
+    return x, gamma, beta
+
+
+def _ln_gap(got, want) -> tuple[float, float, float]:
+    """(share of elements bit-equal, widest |difference| in bf16 ulps of
+    the reference (bf16 output) or over the widest |reference| (float32
+    output), widest |difference|).  A bf16 ulp is taken at no less than
+    1/256 of the widest |reference|: nearer 0 the float32 rounding of any
+    two implementations' statistics (~2^-23 of the widest) spans more
+    than one of the value's own ulps."""
+    diff = (got.float() - want.float()).abs()
+    bits = torch.int16 if got.dtype == BF16 else torch.int32
+    same = float((got.view(bits) == want.view(bits)).float().mean())
+    if got.dtype == BF16:
+        ref = want.float().abs()
+        _, e = torch.frexp(torch.clamp(ref, min=float(ref.max()) / 256))
+        ulp = torch.ldexp(torch.ones_like(diff), e - 8)
+        return same, float((diff / ulp).max()), float(diff.max())
+    return same, float(diff.max() / want.float().abs().max()), \
+        float(diff.max())
+
+
+def phase_ln(dev, smi: str) -> tuple[int, dict]:
+    """(s, LayerNorm) ``ops.layer_norm``'s kernel (``csrc/layer_norm.cu``)
+    against ``F.layer_norm`` + ``.to`` at Swin-S's norms and a ragged row
+    count, every width with each input and output dtype; each of a
+    forward's norm shapes timed beside its bytes bound and PyTorch's
+    sequence; Swin-S and ViT-L forwards with 53 and 49 ``launches.ln``,
+    nothing but the norm kernel inside ``alink/ln`` and no cast after it
+    in the trace, the embeddings against the plain norms' and a Swin-S
+    forward at 1,024 chips with each."""
+    import alink_tpu_torch.models.vit as vit_module
+    from alink_tpu_torch.detect import FaceModel
+    from alink_tpu_torch.models import FaceSwin_S, FaceViT_L
+    from alink_tpu_torch.ops import layer_norm as L
+    from alink_tpu_torch.utils import profiling
+    from bench_torch.roofline_ln import ln_bound_per_forward_s
+
+    t_phase = time.perf_counter()
+    for line in _ptxas("layer_norm_kernel"):
+        print(f"layer norm ptxas: {line}", flush=True)
+    gd = torch.Generator(device=dev).manual_seed(SEED + 23)
+    eps, err = 1e-5, 0.0
+    cases = [(what, rows, c, i, o) for what, rows, c, i, o, _ in LN_SHAPES]
+    cases += [("ragged", LN_RAGGED, c, i, o) for c in LN_WIDTHS
+              for i in (F32, BF16) for o in (BF16, F32)]
+    for what, rows, c, in_dtype, out_dtype in cases:
+        x, gamma, beta = _ln_case(rows, c, in_dtype, gd)
+        got = L.layer_norm_kernel(x, gamma, beta, eps, out_dtype)
+        want = L.layer_norm_reference(x, gamma, beta, eps, out_dtype)
+        torch.cuda.synchronize()
+        same, gap, diff = _ln_gap(got, want)
+        name = f"{what} ({rows} x {c}, {in_dtype} -> {out_dtype})"
+        if out_dtype == BF16:
+            check(same >= 0.999 and gap <= 1.0, f"layer norm {name}: "
+                  f"{100 * same:.4f} % bit-equal, widest {gap:.2f} ulp")
+        else:
+            check(gap <= 1e-5, f"layer norm {name}: widest |difference| "
+                  f"{gap:.3e} of the widest |reference|")
+            err = max(err, diff)
+        print(f"layer norm {name}: {100 * same:.4f} % bit-equal to "
+              f"F.layer_norm + .to, widest {gap:.3e} "
+              f"{'ulp' if out_dtype == BF16 else 'of the widest |reference|'}",
+              flush=True)
+        del x, gamma, beta, got, want
+    torch.cuda.empty_cache()
+
+    total = {"kernel": 0.0, "library": 0.0}
+    timed = {}
+    for what, rows, c, in_dtype, out_dtype, norms in LN_SHAPES:
+        x, gamma, beta = _ln_case(rows, c, in_dtype, gd)
+        ms, call = kernel_ms(lambda: L.layer_norm_kernel(
+            x, gamma, beta, eps, out_dtype), "launches.ln", calls=10)
+        lib = cuda_ms(lambda: L.layer_norm_reference(
+            x, gamma, beta, eps, out_dtype), iters=10)
+        nbytes = rows * c * (x.element_size()
+                             + torch.finfo(out_dtype).bits // 8)
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        timed[what] = (ms, call, lib, bound)
+        total["kernel"] += norms * ms
+        total["library"] += norms * lib
+        print(f"layer norm {what} ({rows} x {c}, {in_dtype} -> {out_dtype}, "
+              f"{norms} a forward): kernel {ms:.4f} ms (per call from "
+              f"Python {call:.4f}), bytes bound {bound:.4f} "
+              f"({100 * bound / ms:.1f} % of it, {nbytes / ms / 1e6:.0f} "
+              f"GB/s of {nbytes / 1e6:.1f} MB); F.layer_norm + .to "
+              f"{lib:.4f} ms on {smi}", flush=True)
+        del x, gamma, beta
+        torch.cuda.empty_cache()
+    bound_fwd = ln_bound_per_forward_s(S_BATCH) * 1e3
+    print(f"layer norm: a Swin-S forward's 53 norms at {S_BATCH} chips: "
+          f"kernel {total['kernel']:.3f} ms, F.layer_norm + .to "
+          f"{total['library']:.3f} ms, bytes bound {bound_fwd:.3f} ms "
+          f"({100 * bound_fwd / total['kernel']:.1f} % of it)", flush=True)
+
+    limits = json.loads((Path(__file__).resolve().parent / "bench_torch" /
+                         "configs" / "swin_s_face112.json").read_text()
+                        )["limits"]
+    real = vit_module.layer_norm
+
+    @contextlib.contextmanager
+    def norms(fn):
+        vit_module.layer_norm = fn
+        try:
+            yield
+        finally:
+            vit_module.layer_norm = real
+
+    g = torch.Generator().manual_seed(SEED + 23)
+    fm = FaceModel(FaceSwin_S(generator=g, device=dev).eval())
+    chips = (torch.rand((S_BATCH, 112, 112, 3), generator=g) * 255).to(dev)
+    with counting() as made:
+        emb = fm.get_feature(chips[:S_FORWARD])
+    with norms(L.layer_norm_reference):
+        emb_plain = fm.get_feature(chips[:S_FORWARD])
+    embed_gap = float(torch.linalg.vector_norm(emb - emb_plain, dim=1).max())
+    check(made["launches.ln"] == LN_NORMS["swin"] and
+          embed_gap <= limits["embed_gap"], f"layer norm: Swin-S forward "
+          f"{made['launches.ln']} launches, embeddings {embed_gap:.3e} from "
+          f"the plain norms'")
+    launches = made["launches.ln"]
+
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ln"
+    with profiling.trace(str(log_dir)) as prof:
+        fm.get_feature(chips)
+        torch.cuda.synchronize()
+    launches += LN_NORMS["swin"]
+
+    def kernels(evt) -> list:
+        own = [k.name for k in getattr(evt, "kernels", ())]
+        return own + [x for c in evt.cpu_children for x in kernels(c)]
+
+    spans = [e for e in prof.events()
+             if e.name == profiling.SPAN_PREFIX + "ln"
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    inside = [x for e in spans for x in kernels(e)]
+    ran = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(profiling.SPAN_PREFIX)),
+                 key=lambda e: e.time_range.start)
+    after = [b.name for a, b in zip(ran, ran[1:])
+             if "layer_norm_kernel" in a.name]
+    casts = [x for x in after if "copy" in x]
+    counted = json.loads((log_dir / "counters.json").read_text())
+    check(len(spans) == LN_NORMS["swin"] and
+          counted["launches.ln"] == LN_NORMS["swin"] and
+          len(inside) == LN_NORMS["swin"] and
+          all("layer_norm_kernel" in x for x in inside) and not casts,
+          f"layer norm: {len(spans)} ln spans, kernels inside "
+          f"{sorted(set(inside))} ({len(inside)}), casts after a norm "
+          f"{sorted(set(casts))}")
+    print(f"layer norm: one Swin-S forward ({S_BATCH}), {len(ran)} kernels; "
+          f"inside the {len(spans)} alink/ln spans only {len(inside)} "
+          f"layer_norm_kernel launches; after them "
+          f"{sorted(set(x[:60] for x in after))}, no copy; counters.json "
+          f"launches.ln {counted['launches.ln']}", flush=True)
+
+    times = {real: [], L.layer_norm_reference: []}
+    for fn in (real, L.layer_norm_reference, L.layer_norm_reference, real):
+        with norms(fn):
+            times[fn].append(cuda_ms(lambda: fm.get_feature(chips), iters=5,
+                                     warmup=2))
+    best = min(times[real])
+    print("layer norm: Swin-S forward at batch {} ms (per call from Python, "
+          "in turns): kernel norms {}, F.layer_norm + .to {}; {:.0f} "
+          "chips/s; embeddings {:.3e} from the plain norms' (limit "
+          "{:g})".format(S_BATCH, [f"{x:.2f}" for x in times[real]],
+                        [f"{x:.2f}" for x in
+                         times[L.layer_norm_reference]],
+                        S_BATCH / best * 1e3, embed_gap,
+                        limits["embed_gap"]), flush=True)
+    del fm, chips, emb, emb_plain, prof
+    torch.cuda.empty_cache()
+
+    vit = FaceViT_L(generator=g, device=dev).eval()
+    faces = (torch.rand((8, 112, 112, 3), generator=g) * 255).to(dev)
+    with torch.no_grad(), counting() as made:
+        emb = vit(faces)
+    with torch.no_grad(), norms(L.layer_norm_reference):
+        emb_plain = vit(faces)
+    vit_gap = float(torch.linalg.vector_norm(emb - emb_plain, dim=1).max())
+    vit_limit = json.loads((Path(__file__).resolve().parent / "bench_torch" /
+                            "configs" / "insightface_vitl_mtcnn.json"
+                            ).read_text())["limits"]["embed_gap"]
+    check(made["launches.ln"] == LN_NORMS["vit"] and vit_gap <= vit_limit,
+          f"layer norm: ViT-L forward {made['launches.ln']} launches, "
+          f"embeddings {vit_gap:.3e} from the plain norms'")
+    launches += made["launches.ln"]
+    print(f"layer norm: ViT-L forward (8 faces) {made['launches.ln']} "
+          f"launches.ln, embeddings {vit_gap:.3e} from the plain norms'; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del vit, faces
+    torch.cuda.empty_cache()
+    # The kernels line: stage 3's block norm, 36 of a forward's 53.
+    ms, call, lib, bound = timed["stage 3"]
+    return launches, {"err": err, "ms": ms, "call_ms": call,
+                      "plain_ms": lib, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4862,6 +5100,8 @@ def main() -> int:
     counts["window_attention"], numbers["window_attention"] = phase_swin(
         dev, smi)
     torch.cuda.empty_cache()
+    counts["layer_norm"], numbers["layer_norm"] = phase_ln(dev, smi)
+    torch.cuda.empty_cache()
     stamp("s")
     # Each kernel's count is the one from the main paths that run it:
     # serving, evaluation, (k)'s score matrix and (l)'s top-1 tail for K1,
@@ -4909,7 +5149,9 @@ def main() -> int:
                "nms": ("alink_tpu_torch/csrc/nms.cu",
                        "none: alink_tpu/ops/nms.py is array arithmetic"),
                "window_attention": ("alink_tpu_torch/csrc/attention.cu",
-                                    "none: the JAX package has no Swin")}
+                                    "none: the JAX package has no Swin"),
+               "layer_norm": ("alink_tpu_torch/csrc/layer_norm.cu",
+                              "none: the JAX package has no transformer")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": counts[name],

@@ -348,14 +348,20 @@ def test_spans_and_counters_under_trace_only(tmp_path, monkeypatch):
             spans[key] = spans.get(key, 0) + 1
     embed = P.SPAN_PREFIX + "embed"
     assert spans.pop(("embed", None)) == 1
+    # Each LayerNorm in its own span: the blocks' two, the patch norm, the
+    # merge's and the final norm inside the span around each.
     assert spans == {("swin.patch", embed): 1, ("swin.attn", embed): 4,
                      ("swin.mlp", embed): 4, ("swin.merge", embed): 1,
-                     ("swin.head", embed): 1}
+                     ("swin.head", embed): 1, ("ln", embed): 8,
+                     ("ln", P.SPAN_PREFIX + "swin.patch"): 1,
+                     ("ln", P.SPAN_PREFIX + "swin.merge"): 1,
+                     ("ln", P.SPAN_PREFIX + "swin.head"): 1}
     counts = json.loads((tmp_path / "counters.json").read_text())
     assert counts["embed.calls"] == 1 and counts["swin.forwards"] == 1
     assert counts["swin.tokens"] == 2 * (14 * 14 + 7 * 7)
     assert counts["swin.windows"] == 2 * (2 * 4 + 2 * 1)
     assert counts["launches.wattn"] == 0          # no card: the plain core
+    assert counts["launches.ln"] == 0             # nor the plain norms
 
     def refuse(*a, **k):
         raise AssertionError("record_function while no profiler records")

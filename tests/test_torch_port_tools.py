@@ -524,4 +524,4 @@ def test_profiling_counters_load_no_kernel_module():
     assert launches == dict.fromkeys(
         ["launches.k1", "launches.k2", "launches.k3", "launches.k4",
          "launches.bn_act", "launches.bn_act_backward", "launches.attn",
-         "launches.wattn", "launches.nms"], 0)
+         "launches.wattn", "launches.nms", "launches.ln"], 0)

@@ -28,7 +28,7 @@ from alink_tpu_torch.utils import profiling as P
 PREFIX = P.SPAN_PREFIX
 LAUNCHES = ("launches.k1", "launches.k2", "launches.k3", "launches.k4",
             "launches.bn_act", "launches.bn_act_backward", "launches.attn",
-            "launches.wattn", "launches.nms")
+            "launches.wattn", "launches.nms", "launches.ln")
 NOISE = ("gaussian", "saltpepper", "adversarial", "fgsm")
 
 
